@@ -1,27 +1,26 @@
-"""epic_tpu — a TPU-native log-space harmonic-function path-planning engine.
+"""epic_tpu — a log-space harmonic-function path-planning engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference CUDA/C++/ROS package `epic` (kylewray/epic): occupancy-grid ingest,
+A from-scratch JAX/XLA re-design, with one CUDA kernel for the 2D sweep on
+NVIDIA GPUs, of the reference CUDA/C++/ROS package `epic` (kylewray/epic)
+and its capabilities: occupancy-grid ingest,
 log-space red-black relaxation of a harmonic potential, gradient-ascent
 streamline extraction, incremental warm-started replanning services, batched
 multi-scenario solves, and multi-chip spatial domain decomposition.
 """
 
 import os as _os
+import pathlib as _pathlib
 
 import jax as _jax
 
-# Persistent compilation cache: first-compile latency dominates interactive
-# use (remote-compile TPU backends especially); cache across processes.
+# Persistent compilation cache, shared across processes: JAX itself reads
+# JAX_COMPILATION_CACHE_DIR when it is set; otherwise the cache lives at a
+# fixed path in the checkout (the path is part of the cache key).
+CACHE_DIR = _os.environ.get(
+    "JAX_COMPILATION_CACHE_DIR",
+    str(_pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"))
 if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
-    try:
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.path.expanduser("~/.cache/epic_tpu_jax"),
-        )
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # config name drift across jax versions — best effort
-        pass
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from . import analysis, checkpoint, config, constants, errors, maps, path, path3d, path_nd, profiling, viz
 from .grid import (

@@ -3,7 +3,7 @@
 The reference's configuration surface is ROS parameters + keyword defaults
 scattered across launch files (epic_navigation_node_main.cpp:43-68,
 launch/*.launch). Here it is one dataclass tree covering solver numerics,
-kernel selection/tiling, mesh shape, and service endpoints. PlannerConfig
+kernel selection, mesh shape, and service endpoints. PlannerConfig
 (epic_tpu.planner) embeds SolverConfig semantics for the anytime node.
 """
 
@@ -21,20 +21,11 @@ class SolverConfig:
     epsilon: float = C.DEFAULT_EPSILON_NODE
     stagger: int = C.DEFAULT_STAGGER
     max_iterations: int = 1_000_000
-    # backend: "auto" = pallas on TPU when the grid fits VMEM, else XLA.
-    backend: str = "auto"            # "auto" | "xla" | "pallas"
-    # kernel: the masked full-grid layout (the parity-packed half-grid
-    # variant measured worse on v5e — lane shifts/selects cost more than the
-    # saved logsumexps, docs/BENCH_NOTES.md — and was retired in round 3
-    # with pallas_packed; "masked" is the only value).
+    # backend: which compute path relaxes the grid (solver.route): "auto"
+    # runs the CUDA sweep kernel for 2D grids on a GPU and XLA elsewhere.
+    backend: str = "auto"            # "auto" | "xla" | "cuda"
+    # kernel: the stencil layout; the masked full-grid update is the only one.
     kernel: str = "masked"           # "masked"
-    # Big-grid (beyond-VMEM) kernel parameters (solver.pallas_biggrid):
-    # tile_depth is the temporal-blocking K (sweeps per HBM round trip;
-    # K=16 measured best, docs/BENCH_NOTES.md); tile_band overrides the
-    # auto row-band height (None = choose_layout picks from the VMEM
-    # budget). Consumed by Planner's big-grid update path.
-    tile_band: int | None = None
-    tile_depth: int = 16
     # Opt-in coarse-to-fine warm start for blocking solves (solver.cascade):
     # same convergence certificate, fewer fine-grid sweeps on open domains.
     cascade: bool = False

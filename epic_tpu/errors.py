@@ -4,7 +4,7 @@ Mirrors the reference's ``epic/error_codes.h``
 (/root/reference/libepic/include/epic/error_codes.h:31-46). The numeric values
 are kept identical so tools written against the reference's codes translate
 directly. Device-specific CUDA codes are retained for API parity but unused:
-in the TPU build, device placement and transfers are managed by XLA and cannot
+here, device placement and transfers are managed by XLA and cannot
 fail in the granular ways cudaMalloc/cudaMemcpy can.
 """
 
@@ -18,11 +18,11 @@ class Result(enum.IntEnum):
     SUCCESS_AND_CONVERGED = 1
 
     ERROR_INVALID_DATA = 2
-    ERROR_INVALID_CUDA_PARAM = 3   # unused on TPU; kept for code parity
-    ERROR_DEVICE_MALLOC = 4        # unused on TPU
-    ERROR_MEMCPY_TO_DEVICE = 5     # unused on TPU
-    ERROR_MEMCPY_TO_HOST = 6       # unused on TPU
-    ERROR_DEVICE_FREE = 7          # unused on TPU
+    ERROR_INVALID_CUDA_PARAM = 3   # unused (XLA manages devices); kept for code parity
+    ERROR_DEVICE_MALLOC = 4        # unused
+    ERROR_MEMCPY_TO_DEVICE = 5     # unused
+    ERROR_MEMCPY_TO_HOST = 6       # unused
+    ERROR_DEVICE_FREE = 7          # unused
     ERROR_KERNEL_EXECUTION = 8
     ERROR_DEVICE_SYNCHRONIZE = 9
 

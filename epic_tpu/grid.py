@@ -2,7 +2,7 @@
 
 The reference's mutable ``Harmonic`` struct
 (/root/reference/libepic/include/epic/harmonic/harmonic.h:44-64) holds
-host+device pointer pairs plus solver bookkeeping. In the TPU build this
+host+device pointer pairs plus solver bookkeeping. Here this
 collapses into one immutable pytree, ``GridState``; every mutator
 (``harmonic_utilities_set_cells_2d_{cpu,gpu}``, goal edits, occupancy ingest)
 becomes a pure function ``state -> state``. There is no host/device mirroring:

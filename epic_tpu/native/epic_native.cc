@@ -1,6 +1,6 @@
 // epic_native — C++ helpers for the epic_tpu framework.
 //
-// The TPU compute path (relaxation sweeps) lives in JAX/Pallas; this library
+// The device compute path (relaxation sweeps) lives in JAX; this library
 // provides the host-side native pieces the reference implements in C++:
 //
 //   * float32 streamline extraction: the sequential, data-dependent
@@ -13,7 +13,7 @@
 //     omega relaxation, 10000-iteration floor) — the precision-collapse
 //     baseline for the paper's comparison harness.
 //   * a scalar float32 red-black log-space sweep, used as an independent
-//     oracle for the JAX/Pallas solvers.
+//     oracle for the JAX solvers.
 //
 // Everything is a flat C ABI over caller-owned buffers (no structs, no
 // allocation except the caller-provided path buffer), loaded via ctypes.

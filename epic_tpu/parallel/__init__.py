@@ -1,5 +1,4 @@
-from . import resident, resident3d, resident_z, sharded, sharded3d
+from . import sharded, sharded3d
 from .sharded import make_mesh
 
-__all__ = ["resident", "resident3d", "resident_z", "sharded", "sharded3d",
-           "make_mesh"]
+__all__ = ["sharded", "sharded3d", "make_mesh"]

@@ -1,17 +1,17 @@
-"""Multi-host bring-up for pod-slice solves.
+"""Multi-host bring-up for solves over several hosts' devices.
 
 The reference has no distributed transport at all (single GPU, cudaMemcpy
-only — SURVEY §5). In the TPU build, scaling past one host is configuration,
-not new solver code: initialise the JAX distributed runtime, build the global
-2D mesh over every device in the slice, and the halo-exchange solver
+only — SURVEY §5). Here, scaling past one host is configuration, not new
+solver code: initialise the JAX distributed runtime, build the global 2D
+mesh over every device, and the halo-exchange solver
 (:mod:`epic_tpu.parallel.sharded`) runs unchanged — `ppermute` neighbours
-inside a host ride ICI, across hosts ride DCN, and the staggered `pmax`
-residual is a global collective.
+inside a host ride NVLink, across hosts the network, and the staggered
+`pmax` residual is a global collective.
 
 Typical driver (same script on every host):
 
     from epic_tpu.parallel import multihost, make_mesh, sharded
-    multihost.initialize()                  # env-driven (TPU pods: automatic)
+    multihost.initialize("host0:1234", 2, rank)   # coordinator, count, id
     mesh = make_mesh()                      # all devices across all hosts
     state = ...                             # identical on every host
     out = sharded.solve(state, mesh)
@@ -30,7 +30,8 @@ def initialize(
     process_id: int | None = None,
 ) -> None:
     """Initialise jax.distributed (no-op if already initialised or running
-    single-process). On Cloud TPU pods all arguments are auto-detected."""
+    single-process). Pass the coordinator address, process count and this
+    process's id; nothing detects a cluster by itself."""
     import jax
 
     try:

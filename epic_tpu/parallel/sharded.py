@@ -1,13 +1,13 @@
 """Multi-chip spatial domain decomposition: shard_map + halo exchange.
 
 The reference is strictly single-GPU — the whole grid must fit one device
-(harmonic_model_gpu.cu:76-106). The TPU-native scaling analog (SURVEY §5,
+(harmonic_model_gpu.cu:76-106). The scaling analog here (SURVEY §5,
 "long-context analog") is 2D spatial decomposition over a device Mesh:
 
 - the grid is sharded P('my', 'mx') across a 2D mesh;
-- each red-black sweep needs exactly a 1-cell halo from each neighbour,
-  exchanged with ``jax.lax.ppermute`` (rides ICI within a slice, DCN across
-  hosts when ``jax.distributed`` is initialised);
+- K sweeps need a K-deep halo from each neighbour, exchanged with
+  ``jax.lax.ppermute`` once per K sweeps (NVLink between the cards of one
+  host; across hosts when ``jax.distributed`` is initialised);
 - the staggered convergence check is a ``jax.lax.pmax`` of the local deltas —
   replacing the reference's two-stage shared-memory block reduction plus
   4-byte D2H copy (harmonic_gpu.cu:113-153, 402);
@@ -16,7 +16,8 @@ The reference is strictly single-GPU — the whole grid must fit one device
 
 Update numerics are pinned to the oracle exactly as in
 :mod:`epic_tpu.solver.core`; a sharded solve equals the single-device solve
-to float tolerance (tested on a virtual 8-device CPU mesh).
+to float tolerance (tested on a virtual 8-device CPU mesh). The per-shard
+sweep is XLA on every platform (``solver.route`` with ``sharded=True``).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .. import constants as C
 from ..grid import GridState
 
+from ..solver import route
 from ..solver._padding import box_mask
-from ..solver._sweep_body import LOG2N_2D as _LOG2N_2D, lse4
+from ..solver.core import _log2n
 
 
 def make_mesh(shape: tuple[int, int] | None = None, devices=None) -> Mesh:
@@ -61,8 +63,8 @@ def _exchange_halos_k(u: jax.Array, mesh: Mesh, k: int):
     Phase 1 extends vertically with the K boundary rows of the my-neighbours;
     phase 2 exchanges K-column strips of the *already row-extended* arrays,
     so the mx-neighbours' strips carry the diagonal (corner) blocks a K-sweep
-    dependency cone needs. One ppermute pair per axis per K sweeps — the
-    ICI-latency fix over the round-1 per-sweep 1-cell exchange (ROADMAP #5).
+    dependency cone needs. One ppermute pair per axis per K sweeps instead
+    of one per sweep.
 
     Out-of-mesh halos arrive as zeros; callers mask them via the frozen
     exchange (inverted convention, see _exchange_frozen_k) so they are never
@@ -86,233 +88,6 @@ def _exchange_frozen_k(frozen: jax.Array, mesh: Mesh, k: int):
     return ext == 0
 
 
-def _sweep_k_local_kernel(scal_ref, u_ref, f_ref, u_out, delta_ref,
-                          *, num_sweeps, he, we):
-    """Pallas twin of :func:`_sweep_k_local`: K guarded sweeps on one
-    shard's K-extended block, VMEM-resident (the per-shard compute of the
-    shard_map + Pallas composition; scal = [t0, row0, col0])."""
-    t0 = scal_ref[0]
-    row0 = scal_ref[1]
-    col0 = scal_ref[2]
-    u0 = u_ref[:]
-    not_frozen = f_ref[:] == 0
-    lr = jax.lax.broadcasted_iota(jnp.int32, (he, we), 0)
-    lc = jax.lax.broadcasted_iota(jnp.int32, (he, we), 1)
-    parity = (lr + row0 + lc + col0) % 2
-
-    def sweep(s, u):
-        val = lse4(u, he, we)
-        valid = (lr >= s + 1) & (lr < he - 1 - s) & (lc >= s + 1) & (lc < we - 1 - s)
-        update = (parity != ((t0 + s) % 2)) & not_frozen & valid
-        return jnp.where(update, val, u)
-
-    u1 = sweep(0, u0)
-    delta_ref[0] = jnp.max(jnp.abs(u1 - u0))
-    u_out[:] = jax.lax.fori_loop(1, num_sweeps, sweep, u1)
-
-
-def _sweep_k_local_pallas(u_ext, frozen_ext, it0, row0, col0, num_sweeps,
-                          interpret):
-    """Run the per-shard K-sweep block through the Pallas kernel (VMEM
-    resident, single whole-array call per shard per chunk)."""
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    he, we = u_ext.shape
-    scal = jnp.stack([it0, row0, col0]).astype(jnp.int32)
-    # Inside shard_map every output varies across both mesh axes (vma is
-    # required by the manual-axes type system for pallas_call outputs).
-    vma = frozenset({"my", "mx"})
-    out_u, out_delta = pl.pallas_call(
-        _ft.partial(_sweep_k_local_kernel, num_sweeps=num_sweeps,
-                    he=he, we=we),
-        out_shape=(
-            jax.ShapeDtypeStruct((he, we), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((1,), jnp.float32, vma=vma),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(scal, u_ext, frozen_ext.astype(jnp.int32))
-    return out_u, out_delta[0]
-
-
-def _band_shard_kernel(scal_ref, u_hbm, f_hbm, u_out, delta_ref,
-                       u_vmem, f_vmem, sems,
-                       *, num_sweeps, band, k, wp, we, he):
-    """Per-shard banded DMA kernel: the beyond-VMEM per-shard compute of the
-    shard_map composition (VERDICT r2 #1 — the 16k² multi-host config must
-    run the Pallas path, not the XLA fallback).
-
-    Structure mirrors :func:`epic_tpu.solver.pallas_biggrid._band_kernel_dma`
-    (double-buffered contiguous HBM→VMEM band copies, K guarded sweeps,
-    write back only the band centre), with two shard-specific changes:
-
-    - the shard's K halo rows/cols (from the ppermute exchange) play the role
-      of biggrid's guard rows, but are UNFROZEN: the band trapezoid updates
-      them transiently so centre cells near the shard edge see exactly the
-      owner shard's arithmetic (same temporal-blocking argument as
-      :func:`_sweep_k_local`);
-    - static guards ``1 <= col <= we-2`` and ``shard-ext row <= he-2`` keep
-      the outermost halo columns read-only (they would read roll wrap-around
-      garbage) and stop the last real halo row from updating against the
-      frozen -1e6 alignment-padding rows below it (which would pollute the
-      sweep-0 DELTA — the centre field never sees those rows, but the
-      staggered-check residual must cover exactly the distance>=1 cells of
-      the true extended block, bit-equal to the whole-block kernel's delta).
-
-    scal = [t0, row0, col0]; parity offsets are the global coordinates of the
-    shard-extended block origin (mod 2).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    i = pl.program_id(0)
-    nb = pl.num_programs(0)
-    ext = band + 2 * k
-
-    def copies(band_idx, slot):
-        start = band_idx * band
-        return (
-            pltpu.make_async_copy(
-                u_hbm.at[pl.ds(start, ext), :], u_vmem.at[slot], sems.at[slot, 0]
-            ),
-            pltpu.make_async_copy(
-                f_hbm.at[pl.ds(start, ext), :], f_vmem.at[slot], sems.at[slot, 1]
-            ),
-        )
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i == 0)
-    def _():
-        cu, cf = copies(0, 0)
-        cu.start()
-        cf.start()
-
-    @pl.when(i + 1 < nb)
-    def _():
-        cu, cf = copies(i + 1, jax.lax.rem(i + 1, 2))
-        cu.start()
-        cf.start()
-
-    cu, cf = copies(i, slot)
-    cu.wait()
-    cf.wait()
-
-    t0 = scal_ref[0]
-    row0 = scal_ref[1]
-    col0 = scal_ref[2]
-    u0 = u_vmem[slot]
-    # int8 mask widened before the compare (Mosaic v5e rejects int8
-    # vector compares, not int8 DMAs).
-    not_frozen = f_vmem[slot].astype(jnp.int32) == 0
-    lr = jax.lax.broadcasted_iota(jnp.int32, (ext, wp), 0)
-    lc = jax.lax.broadcasted_iota(jnp.int32, (ext, wp), 1)
-    parity = (lr + i * band + row0 + lc + col0) % 2
-    edge_ok = (lc >= 1) & (lc <= we - 2) & (lr + i * band <= he - 2)
-
-    def sweep(s, u):
-        val = lse4(u, ext, wp)
-        valid = (lr > s) & (lr < ext - 1 - s) & edge_ok
-        update = (parity != ((t0 + s) % 2)) & not_frozen & valid
-        return jnp.where(update, val, u)
-
-    u1 = sweep(0, u0)
-    delta_ref[i, 0] = jnp.max(jnp.abs(u1 - u0))
-    u = jax.lax.fori_loop(1, num_sweeps, sweep, u1)
-    u_out[:] = u[k : k + band, :]
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _sweep_k_local_banded(u_ext, frozen_ext, it0, row0, col0, num_sweeps, k,
-                          interpret):
-    """Run num_sweeps (<= k) sweeps on one shard's K-extended block through
-    the banded DMA kernel; returns (centre block [h_loc, w_loc], delta).
-
-    The extended block is padded (bottom rows / right cols, frozen) to the
-    banded layout ``nb*band + 2k`` rows x 128-aligned cols; k must be a
-    multiple of 4 (2k rows per side keeps DMA band slices sublane-aligned,
-    like pallas_biggrid.choose_layout)."""
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ..solver.pallas_biggrid import EXT_BAND_CELL_BUDGET
-
-    he, we = u_ext.shape
-    h_loc = he - 2 * k
-    w_loc = we - 2 * k
-    wp = _round_up(we, 128)
-    # int8 masks admit deeper bands, but only high-redundancy layouts
-    # gain from them (see solver.pallas_biggrid.choose_layout).
-    ext_max = max(32, (EXT_BAND_CELL_BUDGET // wp) // 8 * 8)
-    band_max = max(8, ext_max - 2 * k)
-    nb = -(-h_loc // band_max)
-    band = _round_up(-(-h_loc // nb), 8)
-    if 2 * k / band > 0.12:
-        ext_max = max(32, (EXT_BAND_CELL_BUDGET * 8 // 5 // wp) // 8 * 8)
-        band_max = max(8, ext_max - 2 * k)
-        nb = -(-h_loc // band_max)
-        band = _round_up(-(-h_loc // nb), 8)
-    hp = nb * band + 2 * k
-    ext = band + 2 * k
-
-    u_pad = jnp.pad(u_ext, ((0, hp - he), (0, wp - we)),
-                    constant_values=np.float32(C.LOG_SPACE_OBSTACLE))
-    f_pad = jnp.pad(frozen_ext.astype(jnp.int8), ((0, hp - he), (0, wp - we)),
-                    constant_values=1)
-    scal = jnp.stack([it0, row0, col0]).astype(jnp.int32)
-    vma = frozenset({"my", "mx"})
-    out_u, out_delta = pl.pallas_call(
-        _ft.partial(_band_shard_kernel, num_sweeps=num_sweeps,
-                    band=band, k=k, wp=wp, we=we, he=he),
-        grid=(nb,),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb * band, wp), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((nb, 1), jnp.float32, vma=vma),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=(
-            pl.BlockSpec((band, wp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, ext, wp), jnp.float32),
-            pltpu.VMEM((2, ext, wp), jnp.int8),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=128 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(scal, u_pad, f_pad)
-    # Band centres are padded rows [k, k+nb*band) = shard-ext rows k..; the
-    # shard centre is the first h_loc of them, columns k..k+w_loc.
-    return out_u[:h_loc, k : k + w_loc], jnp.max(out_delta)
-
-
 def _sweep_k_local(u_ext, frozen_ext, parity_ext, it0, num_sweeps, k):
     """num_sweeps (<= k) sweeps on the K-extended local block.
 
@@ -334,7 +109,7 @@ def _sweep_k_local(u_ext, frozen_ext, parity_ext, it0, num_sweeps, k):
         ue = jnp.roll(u, -1, 1)
         m = jnp.maximum(jnp.maximum(un, us), jnp.maximum(uw, ue))
         ssum = ((jnp.exp(un - m) + jnp.exp(us - m)) + jnp.exp(uw - m)) + jnp.exp(ue - m)
-        val = (m + jnp.log(ssum)) - _LOG2N_2D
+        val = (m + jnp.log(ssum)) - _log2n(2)
         valid = (lr >= s + 1) & (lr < he - 1 - s) & (lc >= s + 1) & (lc < we - 1 - s)
         # Wait-free edge case: with k == num_sweeps the first sweep's valid
         # ring starts one cell inside the extension, so roll wrap-around
@@ -387,135 +162,56 @@ def _pad_for_mesh(state: GridState, mesh: Mesh):
     return u, frozen
 
 
-# Default K: sweeps per halo exchange. Amortizes ICI latency 16x over the
+# Default K: sweeps per halo exchange. Amortizes the exchange 16x over a
 # per-sweep exchange; halo redundancy is 2K cells per axis per shard.
 DEFAULT_CHUNK_DEPTH = 16
 
 
-def _prefers_resident(shape, mesh: Mesh, chunk_depth: int) -> bool:
-    """auto-dispatch gate for the resident layout: TPU backend,
-    beyond-VMEM shards (where the per-shard compute would take the banded
-    DMA path, whose per-chunk relayout the resident layout exists to
-    remove), tile-aligned extents. Whole-shard VMEM shards keep the
-    plain pallas path (no relayout exists there to remove)."""
-    import jax
-
-    from ..solver.pallas_sweep import VMEM_CELL_BUDGET
-    from . import resident
-
-    if jax.default_backend() != "tpu":
-        return False
-    hp, wp = padded_shape(shape, mesh)
-    h_loc = hp // mesh.shape["my"]
-    w_loc = wp // mesh.shape["mx"]
-    depth = min(chunk_depth, h_loc, w_loc)
-    ext_cells = (_round_up(h_loc + 2 * depth, 8)
-                 * _round_up(w_loc + 2 * depth, 128))
-    return (ext_cells > VMEM_CELL_BUDGET
-            and resident.eligible(h_loc, w_loc))
+def _check_route(shape) -> None:
+    """The sharded path is XLA on every platform route.choose accepts; an
+    unsupported platform raises here."""
+    route.choose(route.platform(), shape, sharded=True)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "num_steps", "chunk_depth", "kernel"),
+    static_argnames=("mesh", "num_steps", "chunk_depth"),
     donate_argnums=(0,),
 )
 def _update_n_sharded(
     u, frozen, iteration, mesh: Mesh, num_steps: int,
     chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-    kernel: str = "auto",
 ):
     """num_steps sweeps as ceil(num_steps / chunk_depth) halo-exchange
-    rounds; delta (pmax-reduced) from the overall first sweep.
-
-    kernel: per-shard compute path — "auto" picks Pallas on TPU and XLA
-    elsewhere; "pallas" auto-selects between the whole-shard VMEM kernel
-    (shards whose extended block fits :data:`pallas_sweep.VMEM_CELL_BUDGET`)
-    and the banded DMA kernel (beyond-VMEM shards — the 16k² multi-host
-    config, harmonic_model_gpu.cu:76-106's single-device ceiling, runs the
-    Pallas path at big-grid rates instead of falling back to XLA).
-    "pallas_banded"/"xla" (+ "*_interpret" variants) force one path.
-    """
-    if kernel == "auto":
-        kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if kernel not in ("pallas", "pallas_interpret", "pallas_banded",
-                      "pallas_banded_interpret", "xla"):
-        # "resident" is a layout, not a per-shard kernel: it must be
-        # routed at the entry points (update_n / update_n_resident /
-        # solve), never fall through to the XLA local-sweep branch.
-        raise ValueError(f"unknown sharded kernel {kernel!r}")
-    interpret = kernel.endswith("_interpret")
+    rounds; delta (pmax-reduced) from the overall first sweep."""
 
     @functools.partial(
         jax.shard_map,
         mesh=mesh,
         in_specs=(P("my", "mx"), P("my", "mx"), P()),
         out_specs=(P("my", "mx"), P()),
-        # The Pallas interpreter's internal dynamic_slice mixes varying and
-        # invariant values, which the manual-axes type checker rejects; the
-        # compiled path type-checks fine.
-        check_vma=not interpret,
     )
     def run(u_loc, frozen_loc, it0):
-        from ..solver.pallas_sweep import VMEM_CELL_BUDGET
-
         # Halo depth cannot exceed the local block extent.
         h_loc, w_loc = u_loc.shape
         depth = min(chunk_depth, h_loc, w_loc)
-        kern = kernel
-        if kern in ("pallas", "pallas_interpret"):
-            ext_cells = (_round_up(h_loc + 2 * depth, 8)
-                         * _round_up(w_loc + 2 * depth, 128))
-            if ext_cells > VMEM_CELL_BUDGET:
-                kern = "pallas_banded_interpret" if interpret else "pallas_banded"
-        use_banded = kern in ("pallas_banded", "pallas_banded_interpret")
-        use_pallas = kern in ("pallas", "pallas_interpret")
-        if use_banded:
-            # DMA band slices need 2k rows per side sublane-aligned
-            # (pallas_biggrid.choose_layout): exchange depth multiple of 4.
-            depth = max(4, depth // 4 * 4)
-            if depth > min(h_loc, w_loc):
-                raise ValueError(
-                    "the banded per-shard kernel needs local shards of at "
-                    f"least 4 cells per axis (got {h_loc}x{w_loc}); use "
-                    "kernel='pallas' or 'xla' for such tiny shards")
         # The frozen mask is static within the call: exchange its halos ONCE
         # at full depth and slice for shallower remainder chunks, instead of
         # paying a ppermute pair per chunk.
         frozen_full = _exchange_frozen_k(frozen_loc, mesh, depth)
-        def chunk(u_loc, it, ns):
-            """One exchange + ns local sweeps (ns static). The banded path
-            always exchanges at the full (aligned) depth and runs ns <= depth
-            sweeps; the others exchange at exactly ns."""
-            k = depth if use_banded else ns
+
+        def chunk(u_loc, it, k):
+            """One exchange at depth k + k local sweeps (k static)."""
             u_ext = _exchange_halos_k(u_loc, mesh, k)
             d0 = depth - k
             frozen_ext = frozen_full[d0 : d0 + h_loc + 2 * k,
                                      d0 : d0 + w_loc + 2 * k]
-            if use_banded:
-                row0 = jax.lax.axis_index("my") * h_loc + k
-                col0 = jax.lax.axis_index("mx") * w_loc + k
-                return _sweep_k_local_banded(
-                    u_ext, frozen_ext, it, row0, col0, ns, k, interpret
-                )
-            if use_pallas:
-                # Parity offsets for the extended block ((-k) ≡ (+k) mod 2).
-                row0 = jax.lax.axis_index("my") * h_loc + k
-                col0 = jax.lax.axis_index("mx") * w_loc + k
-                u_ext, d = _sweep_k_local_pallas(
-                    u_ext, frozen_ext, it, row0, col0, ns, interpret
-                )
-            else:
-                parity_ext = _local_parity_ext(u_loc.shape, mesh, k)
-                u_ext, d = _sweep_k_local(
-                    u_ext, frozen_ext, parity_ext, it, ns, k
-                )
+            parity_ext = _local_parity_ext(u_loc.shape, mesh, k)
+            u_ext, d = _sweep_k_local(u_ext, frozen_ext, parity_ext, it, k, k)
             return u_ext[k:-k, k:-k], d
 
         # First chunk carries the staggered-check delta; remaining full
-        # chunks run through a fori over ONE call site (unrolling
-        # ceil(num_steps/depth) chunk bodies made cold compiles through
-        # remote services pathologically slow), plus one remainder chunk.
+        # chunks run through a fori over ONE call site, plus one remainder.
         d1 = min(depth, num_steps)
         u_loc, delta = chunk(u_loc, it0, d1)
         n_full, rem = divmod(num_steps - d1, depth)
@@ -565,8 +261,7 @@ def shard_state(state: GridState, mesh: Mesh) -> ShardedGrid:
     # Scalars are committed to the mesh as replicated arrays: solver verbs
     # return mesh-committed scalars, and a fresh-vs-post-solve mismatch in
     # the iteration's committed-ness changes the tick jit's cache key — a
-    # hidden ~20 s recompile on the first tick after a solve (probe
-    # edit-resume isolation, r5).
+    # hidden recompile on the first tick after a solve.
     rep = NamedSharding(mesh, P())
     return ShardedGrid(
         u=jax.device_put(u, sharding),
@@ -604,39 +299,13 @@ def unshard(sh: ShardedGrid) -> GridState:
 
 def update_n_resident(
     sh: ShardedGrid, num_steps: int, mesh: Mesh,
-    chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto",
+    chunk_depth: int = DEFAULT_CHUNK_DEPTH,
 ) -> ShardedGrid:
     """Anytime chunk on a mesh-resident state: no re-pad, no re-upload;
-    the sharded buffers are donated across ticks.
-
-    kernel="resident" (picked by "auto" for beyond-VMEM aligned shards,
-    like :func:`update_n`) runs the guard-aligned resident layouts
-    directly on the resident buffers — wide shards take the tiled twin
-    (:func:`resident_tiled.prefer_tiled_shards`)."""
-    if kernel == "auto" and _prefers_resident((sh.height, sh.width), mesh,
-                                              chunk_depth):
-        kernel = "resident"
-    if kernel in ("resident", "resident_interpret"):
-        from . import resident, resident_tiled
-
-        interp = (kernel.endswith("_interpret")
-                  or jax.default_backend() == "cpu")
-        h_loc = sh.u.shape[0] // mesh.shape["my"]
-        w_loc = sh.u.shape[1] // mesh.shape["mx"]
-        if resident_tiled.prefer_tiled_shards(h_loc, w_loc, chunk_depth):
-            u, delta = resident_tiled._update_n_resident(
-                sh.u, sh.frozen, sh.iteration, mesh, num_steps,
-                chunk_depth, interp)
-        else:
-            resident._check_shard((sh.height, sh.width), mesh)
-            u, delta = resident._update_n_resident(
-                sh.u, sh.frozen, sh.iteration, mesh, num_steps,
-                chunk_depth, interp)
-    else:
-        u, delta = _update_n_sharded(
-            sh.u, sh.frozen, sh.iteration, mesh, num_steps, chunk_depth,
-            kernel
-        )
+    the sharded buffers are donated across ticks."""
+    _check_route((sh.height, sh.width))
+    u, delta = _update_n_sharded(
+        sh.u, sh.frozen, sh.iteration, mesh, num_steps, chunk_depth)
     return dataclasses.replace(
         sh, u=u, iteration=sh.iteration + num_steps, delta=delta
     )
@@ -647,66 +316,17 @@ def solve_resident(
     stagger: int = C.DEFAULT_STAGGER,
     max_iterations: int = 1_000_000,
     chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-    kernel: str = "auto",
-    segment_iterations: int | None = None,
 ):
     """Blocking solve-to-convergence directly ON the mesh-resident
-    buffers: no GridState round trip, no re-pad, no re-shard — the
-    ShardedGrid's padded arrays feed the resident solve loops in place
-    and come back resident (the MeshPlanner srvComputePath path; the
-    GridState detour measured 24.8 vs the direct solve's 39.9 G at
-    4096²). Returns ``(sh', converged)``.
-
-    kernel/auto routing matches :func:`update_n_resident`;
-    ``segment_iterations`` runs pipelined watchdog-safe segments."""
-    from . import resident, resident_tiled
-    from .._segments import run_pipelined
-
-    if kernel == "auto" and _prefers_resident((sh.height, sh.width), mesh,
-                                              chunk_depth):
-        kernel = "resident"
-    if kernel not in ("resident", "resident_interpret"):
-        if segment_iterations is not None:
-            raise ValueError(
-                "segment_iterations requires the resident layout "
-                "(kernel='resident' or an auto-eligible shard shape)")
-        # Non-resident kernels: the GridState path (device-side views).
-        st = GridState(
-            u=sh.u[: sh.height, : sh.width],
-            locked=sh.frozen[: sh.height, : sh.width],
-            iteration=sh.iteration,
-            delta=sh.delta,
-            converged=jnp.asarray(False),
-            epsilon=sh.epsilon,
-        )
-        out = solve(st, mesh, stagger, max_iterations, chunk_depth, kernel)
-        return shard_state(out, mesh), out.converged
-    interp = (kernel.endswith("_interpret")
-              or jax.default_backend() == "cpu")
-    h_loc = sh.u.shape[0] // mesh.shape["my"]
-    w_loc = sh.u.shape[1] // mesh.shape["mx"]
-    h, w = sh.height, sh.width
-    if resident_tiled.prefer_tiled_shards(h_loc, w_loc, chunk_depth):
-        depth = chunk_depth
-        fn = resident_tiled._solve_resident
-    else:
-        resident._check_shard((h, w), mesh)
-        depth = (resident.solve_chunk_depth(h_loc, w_loc)
-                 if chunk_depth == DEFAULT_CHUNK_DEPTH else chunk_depth)
-        fn = resident._solve_resident
-    if segment_iterations is None:
-        u, it, delta, conv = fn(sh.u, sh.frozen, sh.epsilon, mesh, stagger,
-                                max_iterations, h, w, depth, interp)
-    else:
-        frozen = sh.frozen
-
-        def seg(uu, bound, it0, cv, dl):
-            return fn(uu, frozen, sh.epsilon, mesh, stagger, bound, h, w,
-                      depth, interp, it0=it0, conv0=cv, delta0=dl)
-
-        u, it, delta, conv = run_pipelined(
-            seg, sh.u, sh.epsilon, max_iterations, segment_iterations)
-    return dataclasses.replace(sh, u=u, iteration=it, delta=delta), conv
+    buffers (the MeshPlanner srvComputePath path): the padded sharded
+    arrays feed the sharded solve loop and come back resident, with no
+    re-pad and no re-shard. Returns ``(sh', converged)``."""
+    _check_route((sh.height, sh.width))
+    u, iteration, delta, converged = _solve_sharded(
+        sh.u, sh.frozen, sh.epsilon, mesh, stagger, max_iterations,
+        sh.height, sh.width, chunk_depth)
+    return dataclasses.replace(sh, u=u, iteration=iteration,
+                               delta=delta), converged
 
 
 def set_cells_resident(sh: ShardedGrid, xy, types) -> ShardedGrid:
@@ -742,39 +362,16 @@ def set_cells_resident(sh: ShardedGrid, xy, types) -> ShardedGrid:
 
 
 def update_n(state: GridState, num_steps: int, mesh: Mesh,
-             chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-             kernel: str = "auto") -> GridState:
-    """Sharded anytime chunk; semantics of core.update_n on a device mesh.
-
-    kernel="resident" routes to the tile-pure guard-aligned layout
-    (:mod:`epic_tpu.parallel.resident`) — no per-chunk relayout copies;
-    "auto" picks it for beyond-VMEM aligned shards (41.7 vs the banded
-    path's 39.6 G at 4096² on chip, bit-equal — probe sharded-resident)."""
-    if kernel == "auto" and _prefers_resident(state.u.shape, mesh,
-                                              chunk_depth):
-        kernel = "resident"
-    if kernel in ("resident", "resident_interpret"):
-        from . import resident, resident_tiled
-
-        interp = True if kernel.endswith("_interpret") else None
-        # Wide shards (the banded redundancy knee, ~13k lanes up) take
-        # the tiled resident layout — same guard-exchange idea over the
-        # unmodified tiled2d kernels.
-        hp_, wp_ = padded_shape(state.u.shape, mesh)
-        if resident_tiled.prefer_tiled_shards(hp_ // mesh.shape["my"],
-                                              wp_ // mesh.shape["mx"],
-                                              chunk_depth):
-            return resident_tiled.update_n(
-                state, num_steps, mesh, chunk_depth, interpret=interp)
-        return resident.update_n(
-            state, num_steps, mesh, chunk_depth, interpret=interp)
+             chunk_depth: int = DEFAULT_CHUNK_DEPTH) -> GridState:
+    """Sharded anytime chunk; semantics of core.update_n on a device mesh."""
+    _check_route(state.u.shape)
     h, w = state.u.shape
     u, frozen = _pad_for_mesh(state, mesh)
     sharding = NamedSharding(mesh, P("my", "mx"))
     u = jax.device_put(u, sharding)
     frozen = jax.device_put(frozen, sharding)
     u, delta = _update_n_sharded(u, frozen, state.iteration, mesh, num_steps,
-                                 chunk_depth, kernel)
+                                 chunk_depth)
     return dataclasses.replace(
         state,
         u=u[:h, :w],
@@ -787,13 +384,12 @@ def update_n(state: GridState, num_steps: int, mesh: Mesh,
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "stagger", "max_iterations", "height", "width",
-                     "chunk_depth", "kernel"),
-    donate_argnums=(0, 1),
+                     "chunk_depth"),
+    donate_argnums=(0,),
 )
 def _solve_sharded(
     u, frozen, epsilon, mesh: Mesh, stagger: int, max_iterations: int,
-    height: int, width: int,
-    chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto",
+    height: int, width: int, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
 ):
     m_max = max(height, width)
 
@@ -804,7 +400,7 @@ def _solve_sharded(
     def body(carry):
         u, iteration, _, _ = carry
         u, delta = _update_n_sharded.__wrapped__(
-            u, frozen, iteration, mesh, 1, chunk_depth, kernel
+            u, frozen, iteration, mesh, 1, chunk_depth
         )
         iteration = iteration + 1
         done = (delta < epsilon) & (iteration >= m_max)
@@ -812,7 +408,7 @@ def _solve_sharded(
         def run_rest(args):
             u, iteration = args
             u, _ = _update_n_sharded.__wrapped__(
-                u, frozen, iteration, mesh, stagger - 1, chunk_depth, kernel
+                u, frozen, iteration, mesh, stagger - 1, chunk_depth
             )
             return u, iteration + (stagger - 1)
 
@@ -830,52 +426,9 @@ def solve(
     stagger: int = C.DEFAULT_STAGGER,
     max_iterations: int = 1_000_000,
     chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-    kernel: str = "auto",
-    segment_iterations: int | None = None,
 ) -> GridState:
-    """Sharded solve-to-convergence; protocol identical to core.solve.
-
-    kernel="resident" keeps the whole while-loop inside shard_map on the
-    tile-pure guard-aligned layout (:mod:`epic_tpu.parallel.resident`);
-    "auto" picks it for beyond-VMEM aligned shards. segment_iterations
-    runs the resident solve as watchdog-safe compiled segments
-    (bit-identical trajectories — resident.solve_segments)."""
-    if kernel == "auto" and _prefers_resident(state.u.shape, mesh,
-                                              chunk_depth):
-        kernel = "resident"
-    if kernel in ("resident", "resident_interpret"):
-        from . import resident, resident_tiled
-
-        interp = True if kernel.endswith("_interpret") else None
-        hp_, wp_ = padded_shape(state.u.shape, mesh)
-        if resident_tiled.prefer_tiled_shards(hp_ // mesh.shape["my"],
-                                              wp_ // mesh.shape["mx"],
-                                              chunk_depth):
-            # Wide shards: the tiled resident layout (banded redundancy
-            # knee — BENCH_NOTES r4 sharded-converge).
-            if segment_iterations is not None:
-                return resident_tiled.solve_segments(
-                    state, mesh, stagger, max_iterations,
-                    segment_iterations, chunk_depth, interpret=interp)
-            return resident_tiled.solve(
-                state, mesh, stagger, max_iterations, chunk_depth,
-                interpret=interp)
-        # The banded resident solve prefers a width-gated deeper exchange
-        # depth than the open update chain (trajectories are
-        # depth-invariant); keep an explicitly-passed non-default depth.
-        depth = (None if chunk_depth == DEFAULT_CHUNK_DEPTH
-                 else chunk_depth)
-        if segment_iterations is not None:
-            return resident.solve_segments(
-                state, mesh, stagger, max_iterations, segment_iterations,
-                depth, interpret=interp)
-        return resident.solve(
-            state, mesh, stagger, max_iterations, depth,
-            interpret=interp)
-    if segment_iterations is not None:
-        raise ValueError(
-            "segment_iterations requires the resident layout "
-            "(kernel='resident' or an auto-eligible shard shape)")
+    """Sharded solve-to-convergence; protocol identical to core.solve."""
+    _check_route(state.u.shape)
     h, w = state.u.shape
     u, frozen = _pad_for_mesh(state, mesh)
     sharding = NamedSharding(mesh, P("my", "mx"))
@@ -883,7 +436,7 @@ def solve(
     frozen = jax.device_put(frozen, sharding)
     u, iteration, delta, converged = _solve_sharded(
         u, frozen, state.epsilon, mesh, stagger, max_iterations, h, w,
-        chunk_depth, kernel,
+        chunk_depth,
     )
     return dataclasses.replace(
         state,

@@ -21,9 +21,8 @@ path refuses 3D outright (harmonic_gpu.cu:158-165). This module carries the
   is identical to :mod:`epic_tpu.solver.core`.
 
 Per-shard compute: the XLA 6-neighbour sweep with a y/x-shrinking validity
-trapezoid (z never shrinks — the full depth is resident), or the flattened
-[D*He, We] Pallas kernel on TPU (same rank-2 roll pattern as
-:mod:`epic_tpu.solver.pallas_sweep3d`).
+trapezoid (z never shrinks unless the mesh shards it), on every platform
+(``solver.route`` with ``sharded=True``).
 
 A sharded solve equals the single-device solve bit/tolerance-exactly
 (tested on virtual 8-device CPU meshes, tests/test_sharded3d.py).
@@ -44,8 +43,9 @@ from .. import constants as C
 from ..grid import GridState
 from .sharded import _neighbor_perm, make_mesh  # noqa: F401  (re-export mesh helper)
 
+from ..solver import route
 from ..solver._padding import box_mask
-from ..solver._sweep_body import LOG2N_3D as _LOG2N_3D, lse6
+from ..solver.core import _log2n
 
 
 def make_mesh3d(shape: tuple[int, int, int] | None = None, devices=None) -> Mesh:
@@ -60,25 +60,13 @@ def make_mesh3d(shape: tuple[int, int, int] | None = None, devices=None) -> Mesh
 
 
 def choose_mesh3d(shape: tuple[int, int, int], devices=None) -> Mesh:
-    """Pick the mesh ORIENTATION for a volume: z-major for cube-regime
-    volumes, plane-sharded for wide planes.
-
-    The decomposition axis decides the composition's rate class
-    (BENCH_NOTES r5): cube-regime volumes (plane fits the plane-banded
-    budget) run the z-resident layout at ~94% of the unsharded kernel
-    (28.7 G at 256³) where plane-sharding pays ~2x guard redundancy on
-    narrow shards (8.7 G); wide-plane volumes cannot plane-band at all
-    and need the plane-sharded resident3d layout (z stays resident).
-    Returns a ``make_mesh3d((n,1,1))`` z-mesh when every z-shard is
-    z-resident-eligible and z has enough depth, else the 2D plane mesh
-    (``make_mesh``'s near-square shape with an mz=1 axis)."""
-    from . import resident_z
-
+    """Pick the mesh orientation for a volume: all devices on z when the
+    volume has at least one plane per device (every card keeps whole
+    planes, and one halo exchange per chunk moves one contiguous slab),
+    else the near-square plane mesh of :func:`make_mesh`."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     n = devices.size
-    d, h, w = shape
-    d_loc = -(-d // n)
-    if d >= n and resident_z.eligible(d_loc, h, w):
+    if shape[0] >= n:
         return make_mesh3d((n, 1, 1), devices=devices)
     my = int(np.floor(np.sqrt(n)))
     while n % my:
@@ -153,7 +141,7 @@ def _sweep_k_local(u_ext, frozen_ext, parity_ext, it0, num_sweeps,
         ssum = ssum + jnp.exp(uyp - m)
         ssum = ssum + jnp.exp(uxm - m)
         ssum = ssum + jnp.exp(uxp - m)
-        val = (m + jnp.log(ssum)) - _LOG2N_3D
+        val = (m + jnp.log(ssum)) - _log2n(3)
         valid = (ly >= s + 1) & (ly < he - 1 - s) & (lx >= s + 1) & (lx < we - 1 - s)
         if z_sharded:
             valid &= (lz >= s + 1) & (lz < d - 1 - s)
@@ -165,239 +153,6 @@ def _sweep_k_local(u_ext, frozen_ext, parity_ext, it0, num_sweeps,
     delta = jnp.max(jnp.abs(u1 - u_ext))
     u_out = jax.lax.fori_loop(1, num_sweeps, sweep, u1)
     return u_out, delta
-
-
-def _sweep_k_local_kernel(scal_ref, u_ref, f_ref, u_out, delta_ref,
-                          *, num_sweeps, d, he, we, z_sharded):
-    """Pallas twin of :func:`_sweep_k_local` on the [D*He, We] flattened
-    block (all six neighbours are rank-2 rolls; slab-crossing wrap garbage
-    lands only on frozen/invalid cells; scal = [t0, z0, y0, x0])."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rows = d * he
-    t0 = scal_ref[0]
-    z0 = scal_ref[1]
-    y0 = scal_ref[2]
-    x0 = scal_ref[3]
-    u0 = u_ref[:]
-    not_frozen = f_ref[:] == 0
-    lr = jax.lax.broadcasted_iota(jnp.int32, (rows, we), 0)
-    lc = jax.lax.broadcasted_iota(jnp.int32, (rows, we), 1)
-    lz = lr // he
-    ly = lr - lz * he
-    parity = (lz + z0 + ly + y0 + lc + x0) % 2
-
-    def sweep(s, u):
-        val = lse6(u, rows, we, he)
-        valid = (ly >= s + 1) & (ly < he - 1 - s) & (lc >= s + 1) & (lc < we - 1 - s)
-        if z_sharded:
-            valid &= (lz >= s + 1) & (lz < d - 1 - s)
-        # 3D updates the class == t%2 (reference_np.sweep_3d parity note).
-        update = (parity != ((t0 + s + 1) % 2)) & not_frozen & valid
-        return jnp.where(update, val, u)
-
-    u1 = sweep(0, u0)
-    delta_ref[0] = jnp.max(jnp.abs(u1 - u0))
-    u_out[:] = jax.lax.fori_loop(1, num_sweeps, sweep, u1)
-
-
-def _sweep_k_local_pallas(u_ext, frozen_ext, it0, z0, y0, x0, num_sweeps,
-                          interpret, z_sharded=False):
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    d, he, we = u_ext.shape
-    scal = jnp.stack([it0, z0, y0, x0]).astype(jnp.int32)
-    vma = (frozenset({"mz", "my", "mx"}) if z_sharded
-           else frozenset({"my", "mx"}))
-    out_u, out_delta = pl.pallas_call(
-        _ft.partial(_sweep_k_local_kernel, num_sweeps=num_sweeps,
-                    d=d, he=he, we=we, z_sharded=z_sharded),
-        out_shape=(
-            jax.ShapeDtypeStruct((d * he, we), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((1,), jnp.float32, vma=vma),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(scal, u_ext.reshape(d * he, we), frozen_ext.astype(jnp.int32).reshape(d * he, we))
-    return out_u.reshape(d, he, we), out_delta[0]
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _band_shard3d_kernel(scal_ref, u_hbm, f_hbm, u_out, delta_ref,
-                         u_vmem, f_vmem, sems,
-                         *, num_sweeps, band, k, he8, wp, he, we):
-    """Per-shard plane-banded DMA kernel: the beyond-VMEM per-shard compute
-    of the 3D shard_map composition (the volume analog of
-    sharded.py::_band_shard_kernel; plane-band structure from
-    pallas_biggrid3d._band3d_kernel_dma).
-
-    The shard's extended block [Dp, he8, wp] is flattened to rows so all six
-    neighbours are rank-2 rolls; bands tile the (resident) z axis in
-    contiguous flat-row ranges, DMA'd HBM->VMEM double-buffered. The z
-    validity trapezoid is the band's temporal-blocking guard; the y/x shard
-    halos use static edge guards (1 <= y <= he-2, 1 <= x <= we-2): staleness
-    from the read-only outermost halo faces travels one cell per sweep and
-    never reaches the centre within k sweeps, while the sweep-0 delta covers
-    exactly the distance>=1 cells of the true extended block (halo updates
-    duplicate the owning shard's arithmetic, so the cross-shard pmax is
-    exact). scal = [t0, y0, x0]."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    i = pl.program_id(0)
-    nb = pl.num_programs(0)
-    ext = band + 2 * k          # extended band depth in planes
-    rows = ext * he8
-
-    def copies(band_idx, slot):
-        start = band_idx * band * he8
-        return (
-            pltpu.make_async_copy(
-                u_hbm.at[pl.ds(start, rows), :], u_vmem.at[slot], sems.at[slot, 0]
-            ),
-            pltpu.make_async_copy(
-                f_hbm.at[pl.ds(start, rows), :], f_vmem.at[slot], sems.at[slot, 1]
-            ),
-        )
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i == 0)
-    def _():
-        cu, cf = copies(0, 0)
-        cu.start()
-        cf.start()
-
-    @pl.when(i + 1 < nb)
-    def _():
-        cu, cf = copies(i + 1, jax.lax.rem(i + 1, 2))
-        cu.start()
-        cf.start()
-
-    cu, cf = copies(i, slot)
-    cu.wait()
-    cf.wait()
-
-    t0 = scal_ref[0]
-    y0 = scal_ref[1]
-    x0 = scal_ref[2]
-    u0 = u_vmem[slot]
-    # int8 mask widened before the compare (Mosaic v5e rejects int8
-    # vector compares, not int8 DMAs).
-    not_frozen = f_vmem[slot].astype(jnp.int32) == 0
-    lr = jax.lax.broadcasted_iota(jnp.int32, (rows, wp), 0)
-    lc = jax.lax.broadcasted_iota(jnp.int32, (rows, wp), 1)
-    lz = lr // he8
-    ly = lr - lz * he8
-    # Volume z of band-local plane lz is i*band - k + lz ((-k) ≡ (+k) mod 2).
-    parity = (lz + i * band + k + ly + y0 + lc + x0) % 2
-    edge_ok = ((ly >= 1) & (ly <= he - 2)
-               & (lc >= 1) & (lc <= we - 2))
-
-    def sweep(s, u):
-        val = lse6(u, rows, wp, he8)
-        valid = (lz > s) & (lz < ext - 1 - s) & edge_ok
-        # 3D updates the class == t%2 (reference_np.sweep_3d parity note).
-        update = (parity != ((t0 + s + 1) % 2)) & not_frozen & valid
-        return jnp.where(update, val, u)
-
-    u1 = sweep(0, u0)
-    delta_ref[i, 0] = jnp.max(jnp.abs(u1 - u0))
-    u = jax.lax.fori_loop(1, num_sweeps, sweep, u1)
-    u_out[:] = u[k * he8 : (k + band) * he8, :]
-
-
-def banded3d_layout(d: int, he8: int, wp: int, k: int):
-    """(band, nb) in planes for the per-shard banded kernel: the deepest
-    band whose double-buffered extended slot fits the scoped-VMEM budget."""
-    from ..solver.pallas_biggrid3d import EXT_BAND_CELL_BUDGET
-
-    plane = he8 * wp
-    # int8 mask slots cost 5 B/cell vs the int32 era's 8 — same proven
-    # bytes, more planes (solver.pallas_biggrid3d.choose_layout's scan).
-    ext_max = max(2 * k + 1, (EXT_BAND_CELL_BUDGET * 4 // 5) // plane)
-    band_max = max(1, ext_max - 2 * k)
-    nb = -(-d // band_max)
-    band = -(-d // nb)
-    return band, nb
-
-
-def _sweep_k_local_banded3d(u_ext, frozen_ext, it0, y0, x0, num_sweeps, k,
-                            interpret):
-    """Run num_sweeps (<= k) sweeps on one shard's y/x-extended volume
-    through the plane-banded DMA kernel; returns (centre [d, h_loc, w_loc],
-    delta). Requires a plane-sharded mesh (z resident per shard)."""
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    d, he, we = u_ext.shape
-    h_loc = he - 2 * k
-    w_loc = we - 2 * k
-    he8 = _round_up(he, 8)
-    wp = _round_up(we, 128)
-    band, nb = banded3d_layout(d, he8, wp, k)
-    dp = nb * band + 2 * k
-    ext = band + 2 * k
-
-    u_pad = jnp.pad(u_ext, ((k, dp - d - k), (0, he8 - he), (0, wp - we)),
-                    constant_values=np.float32(C.LOG_SPACE_OBSTACLE))
-    f_pad = jnp.pad(frozen_ext.astype(jnp.int8),
-                    ((k, dp - d - k), (0, he8 - he), (0, wp - we)),
-                    constant_values=1)
-    scal = jnp.stack([it0, y0, x0]).astype(jnp.int32)
-    vma = frozenset({"my", "mx"})
-    out_u, out_delta = pl.pallas_call(
-        _ft.partial(_band_shard3d_kernel, num_sweeps=num_sweeps,
-                    band=band, k=k, he8=he8, wp=wp, he=he, we=we),
-        grid=(nb,),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb * band * he8, wp), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((nb, 1), jnp.float32, vma=vma),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=(
-            pl.BlockSpec((band * he8, wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, ext * he8, wp), jnp.float32),
-            pltpu.VMEM((2, ext * he8, wp), jnp.int8),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=128 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(scal, u_pad.reshape(dp * he8, wp),
-      f_pad.reshape(dp * he8, wp))
-    # Band centres cover volume planes 0..nb*band; slice the real extent.
-    vol = out_u.reshape(nb * band, he8, wp)
-    return vol[:d, k : k + h_loc, k : k + w_loc], jnp.max(out_delta)
 
 
 def _local_parity_ext(shape_local, mesh, k):
@@ -457,66 +212,22 @@ def _pmax(x, mesh: Mesh):
 DEFAULT_CHUNK_DEPTH = 8
 
 
-def _prefers_resident(shape, mesh: Mesh, chunk_depth: int) -> bool:
-    """auto-dispatch gate for the resident 3D layout: TPU backend,
-    plane-sharded mesh, tile-aligned shard extents, and a shard whose
-    plane-banded layout cannot hold a non-degenerate band (the wide-plane
-    regime — probe24's scoped-VMEM wall): there the banded composition
-    collapses to band=1 / XLA while the resident tiled3d composition runs
-    17.2 G at 64x1024x1024 shards (92% of the unsharded kernel, probe
-    sharded3d-resident). Small-plane shards (256³-class) KEEP the banded
-    path: its k=2 halos out-run the resident layout's 128-lane guard
-    redundancy there (9.9 vs 8.75 G measured)."""
-    import jax
-
-    from ..solver import pallas_biggrid3d
-    from . import resident3d
-
-    if jax.default_backend() != "tpu":
-        return False
-    if _has_z(mesh):
-        # z-only meshes: the z-resident plane-band layout keeps full
-        # planes local (guard cost 2k/d_loc planes) and removes the
-        # exchange+repad relayout of the generic z path — prefer it
-        # whenever a shard's plane-band layout fits the VMEM budget.
-        from . import resident_z
-
-        if mesh.shape["my"] != 1 or mesh.shape["mx"] != 1:
-            return False
-        dp, hp, wp = padded_shape(shape, mesh)
-        return resident_z.eligible(dp // mesh.shape["mz"], hp, wp)
-    dp, hp, wp = padded_shape(shape, mesh)
-    h_loc = hp // mesh.shape["my"]
-    w_loc = wp // mesh.shape["mx"]
-    depth = min(chunk_depth, h_loc, w_loc)
-    banded_ok = pallas_biggrid3d.feasible(
-        (dp, h_loc + 2 * depth, w_loc + 2 * depth))
-    return (not banded_ok
-            and resident3d.eligible(dp, h_loc, w_loc))
+def _check_route(shape) -> None:
+    """The sharded 3D path is XLA on every platform route.choose accepts."""
+    route.choose(route.platform(), shape, sharded=True)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "num_steps", "chunk_depth", "kernel"),
+    static_argnames=("mesh", "num_steps", "chunk_depth"),
     donate_argnums=(0,),
 )
 def _update_n_sharded(
     u, frozen, iteration, mesh: Mesh, num_steps: int,
     chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-    kernel: str = "auto",
 ):
     """num_steps 3D sweeps as ceil(num_steps / chunk_depth) halo-exchange
     rounds; delta (pmax-reduced) from the overall first sweep."""
-    if kernel == "auto":
-        kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if kernel not in ("pallas", "pallas_interpret", "pallas_banded",
-                      "pallas_banded_interpret", "xla"):
-        # "resident" is a layout, not a per-shard kernel: it must be
-        # routed at the entry points (update_n / update_n_resident3d /
-        # solve), never fall through to the XLA local-sweep branch (the
-        # 2D _update_n_sharded rule).
-        raise ValueError(f"unknown sharded 3D kernel {kernel!r}")
-    interpret = kernel.endswith("_interpret")
     zsh = _has_z(mesh)
 
     @functools.partial(
@@ -524,67 +235,22 @@ def _update_n_sharded(
         mesh=mesh,
         in_specs=(_spec(mesh), _spec(mesh), P()),
         out_specs=(_spec(mesh), P()),
-        check_vma=not interpret,
     )
     def run(u_loc, frozen_loc, it0):
-        from ..solver.pallas_biggrid3d import EXT_BAND_CELL_BUDGET
-        from ..solver.pallas_sweep import VMEM_CELL_BUDGET
-
         d, h_loc, w_loc = u_loc.shape
         depth = min(chunk_depth, h_loc, w_loc)
         if zsh:
             depth = min(depth, d)
-        kern = kernel
-        if kern in ("pallas", "pallas_interpret") and not zsh:
-            # Beyond-VMEM shards take the plane-banded DMA path (the z axis
-            # is resident on plane-sharded meshes, so bands tile it like
-            # pallas_biggrid3d; z-sharded meshes keep the VMEM/XLA paths).
-            ext_cells = (d * _round_up(h_loc + 2 * depth, 8)
-                         * _round_up(w_loc + 2 * depth, 128))
-            if ext_cells > VMEM_CELL_BUDGET:
-                kern = ("pallas_banded_interpret" if interpret
-                        else "pallas_banded")
-        use_banded = kern in ("pallas_banded", "pallas_banded_interpret")
-        use_pallas = kern in ("pallas", "pallas_interpret")
-        if use_banded:
-            if zsh:
-                raise ValueError(
-                    "the banded per-shard kernel needs a plane-sharded mesh "
-                    "(z resident); z-sharded meshes use 'pallas'/'xla'")
-            # The double-buffered extended slot ((band + 2*depth) planes)
-            # must fit the scoped-VMEM budget even at band=1 (int8 mask
-            # slots: 5 B/cell per slot pair vs the int32 era's 8).
-            plane = (_round_up(h_loc + 2 * depth, 8)
-                     * _round_up(w_loc + 2 * depth, 128))
-            depth_max = max(1, ((EXT_BAND_CELL_BUDGET * 4 // 5) // plane - 1) // 2)
-            depth = max(1, min(depth, depth_max))
         frozen_full = _exchange_frozen_k(frozen_loc, mesh, depth)
 
-        def chunk(u_loc, it, ns):
-            k = depth if use_banded else ns
+        def chunk(u_loc, it, k):
             u_ext = _exchange_halos_k(u_loc, mesh, k)
             d0 = depth - k
             zs = slice(d0, d0 + d + 2 * k) if zsh else slice(None)
             frozen_ext = frozen_full[zs, d0 : d0 + h_loc + 2 * k,
                                      d0 : d0 + w_loc + 2 * k]
-            if use_banded:
-                y0 = jax.lax.axis_index("my") * h_loc + k
-                x0 = jax.lax.axis_index("mx") * w_loc + k
-                return _sweep_k_local_banded3d(
-                    u_ext, frozen_ext, it, y0, x0, ns, k, interpret
-                )
-            if use_pallas:
-                z0 = jax.lax.axis_index("mz") * d + k if zsh else jnp.int32(0)
-                y0 = jax.lax.axis_index("my") * h_loc + k
-                x0 = jax.lax.axis_index("mx") * w_loc + k
-                u_ext, dd = _sweep_k_local_pallas(
-                    u_ext, frozen_ext, it, z0, y0, x0, ns, interpret, zsh
-                )
-            else:
-                parity_ext = _local_parity_ext(u_loc.shape, mesh, k)
-                u_ext, dd = _sweep_k_local(
-                    u_ext, frozen_ext, parity_ext, it, ns, zsh
-                )
+            parity_ext = _local_parity_ext(u_loc.shape, mesh, k)
+            u_ext, dd = _sweep_k_local(u_ext, frozen_ext, parity_ext, it, k, zsh)
             zc = slice(k, -k) if zsh else slice(None)
             return u_ext[zc, k:-k, k:-k], dd
 
@@ -637,7 +303,7 @@ def shard_state3d(state: GridState, mesh: Mesh) -> ShardedVolume:
     sharding = NamedSharding(mesh, _spec(mesh))
     # Commit the scalars to the mesh (replicated) — see shard_state: a
     # committed-ness mismatch between fresh and post-solve scalars
-    # recompiles the tick jit (~20 s through the remote service).
+    # recompiles the tick jit.
     rep = NamedSharding(mesh, P())
     return ShardedVolume(
         u=jax.device_put(u, sharding),
@@ -699,57 +365,15 @@ def set_cells_resident3d(sv: ShardedVolume, xyz, types) -> ShardedVolume:
     )
 
 
-def _route_resident3d(sv: ShardedVolume, mesh: Mesh, chunk_depth: int,
-                      kernel: str):
-    """(module, interp) for the resident layout serving this mesh, or
-    (None, None) when no resident layout applies (generic path)."""
-    from . import resident3d, resident_z
-
-    interp = (kernel.endswith("_interpret")
-              or jax.default_backend() == "cpu")
-    if _has_z(mesh):
-        if mesh.shape["my"] == 1 and mesh.shape["mx"] == 1:
-            d_loc = sv.u.shape[0] // mesh.shape["mz"]
-            if resident_z.eligible(d_loc, sv.u.shape[1], sv.u.shape[2]):
-                return resident_z, interp
-        return None, None
-    dp, hp, wp = sv.u.shape
-    h_loc = hp // mesh.shape["my"]
-    w_loc = wp // mesh.shape["mx"]
-    if resident3d.eligible(dp, h_loc, w_loc, min(chunk_depth, 2)):
-        return resident3d, interp
-    return None, None
-
-
 def update_n_resident3d(
     sv: ShardedVolume, num_steps: int, mesh: Mesh,
-    chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto",
+    chunk_depth: int = DEFAULT_CHUNK_DEPTH,
 ) -> ShardedVolume:
     """Anytime chunk on a mesh-resident volume: no re-pad, no re-upload;
-    the sharded buffers are donated across ticks. kernel="resident"
-    (picked by "auto" when a resident layout fits the mesh/shape) runs
-    the z-resident or plane-resident layout directly on the buffers."""
-    route = kernel in ("resident", "resident_interpret") or (
-        kernel == "auto" and jax.default_backend() == "tpu")
-    mod = interp = None
-    if route:
-        mod, interp = _route_resident3d(sv, mesh, chunk_depth, kernel)
-        if mod is None and kernel != "auto":
-            raise ValueError(
-                "no resident 3D layout fits this mesh/shape; use "
-                "kernel='pallas'/'xla'")
-    if mod is not None:
-        u, delta = mod._update_n_resident(
-            sv.u, sv.frozen, sv.iteration, mesh, num_steps,
-            min(chunk_depth, 2), interp)
-    else:
-        kern = "xla" if kernel in ("auto", "resident",
-                                   "resident_interpret") else kernel
-        if jax.default_backend() == "tpu" and kernel == "auto":
-            kern = "pallas"
-        u, delta = _update_n_sharded(
-            sv.u, sv.frozen, sv.iteration, mesh, num_steps, chunk_depth,
-            kern)
+    the sharded buffers are donated across ticks."""
+    _check_route((sv.depth, sv.height, sv.width))
+    u, delta = _update_n_sharded(
+        sv.u, sv.frozen, sv.iteration, mesh, num_steps, chunk_depth)
     return dataclasses.replace(
         sv, u=u, iteration=sv.iteration + num_steps, delta=delta
     )
@@ -760,84 +384,30 @@ def solve_resident3d(
     stagger: int = C.DEFAULT_STAGGER,
     max_iterations: int = 1_000_000,
     chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-    kernel: str = "auto",
-    segment_iterations: int | None = None,
 ):
     """Blocking solve-to-convergence directly ON the mesh-resident volume
     buffers (the 2D sharded.solve_resident pattern). Returns
-    ``(sv', converged)``; ``segment_iterations`` runs pipelined
-    watchdog-safe segments."""
-    from .._segments import run_pipelined
-
-    mod, interp = _route_resident3d(sv, mesh, chunk_depth, kernel)
+    ``(sv', converged)``."""
     dims = (sv.depth, sv.height, sv.width)
-    if mod is None:
-        if segment_iterations is not None:
-            raise ValueError(
-                "segment_iterations requires a resident 3D layout")
-        st = GridState(
-            u=sv.u[: sv.depth, : sv.height, : sv.width],
-            locked=sv.frozen[: sv.depth, : sv.height, : sv.width],
-            iteration=sv.iteration,
-            delta=sv.delta,
-            converged=jnp.asarray(False),
-            epsilon=sv.epsilon,
-        )
-        out = solve(st, mesh, stagger, max_iterations, kernel)
-        return shard_state3d(out, mesh), out.converged
-    depth = min(chunk_depth, 2)
-    if segment_iterations is None:
-        u, it, delta, conv = mod._solve_resident(
-            sv.u, sv.frozen, sv.epsilon, mesh, stagger, max_iterations,
-            dims, depth, interp)
-    else:
-        frozen = sv.frozen
-
-        def seg(uu, bound, it0, cv, dl):
-            return mod._solve_resident(
-                uu, frozen, sv.epsilon, mesh, stagger, bound, dims,
-                depth, interp, it0=it0, conv0=cv, delta0=dl)
-
-        u, it, delta, conv = run_pipelined(
-            seg, sv.u, sv.epsilon, max_iterations, segment_iterations)
-    return dataclasses.replace(sv, u=u, iteration=it, delta=delta), conv
+    _check_route(dims)
+    u, iteration, delta, converged = _solve_sharded(
+        sv.u, sv.frozen, sv.epsilon, mesh, stagger, max_iterations, dims,
+        chunk_depth)
+    return dataclasses.replace(sv, u=u, iteration=iteration,
+                               delta=delta), converged
 
 
 def update_n(state: GridState, num_steps: int, mesh: Mesh,
-             chunk_depth: int = DEFAULT_CHUNK_DEPTH,
-             kernel: str = "auto") -> GridState:
-    """Sharded 3D anytime chunk; semantics of core.update_n on a mesh.
-
-    kernel="resident" routes to the resident layouts — no per-chunk
-    relayout copies: plane-sharded meshes take the tile-pure guard-
-    aligned layout (:mod:`epic_tpu.parallel.resident3d`, 8/128-aligned
-    shards only); z-only meshes take the z-resident plane-band layout
-    (:mod:`epic_tpu.parallel.resident_z` — the cube regime's home). "auto"
-    picks them for wide-plane shards where plane-banding degenerates and
-    for eligible z-only meshes."""
-    if kernel == "auto" and _prefers_resident(state.u.shape, mesh,
-                                              chunk_depth):
-        kernel = "resident"
-    if kernel in ("resident", "resident_interpret"):
-        interp = True if kernel.endswith("_interpret") else None
-        if _has_z(mesh):
-            from . import resident_z
-
-            return resident_z.update_n(
-                state, num_steps, mesh, min(chunk_depth, 2),
-                interpret=interp)
-        from . import resident3d
-
-        return resident3d.update_n(
-            state, num_steps, mesh, min(chunk_depth, 2),
-            interpret=interp)
+             chunk_depth: int = DEFAULT_CHUNK_DEPTH) -> GridState:
+    """Sharded 3D anytime chunk; semantics of core.update_n on a mesh."""
+    _check_route(state.u.shape)
     d, h, w = state.u.shape
     u, frozen = _pad_for_mesh(state, mesh)
     sharding = NamedSharding(mesh, _spec(mesh))
     u = jax.device_put(u, sharding)
     frozen = jax.device_put(frozen, sharding)
     u, delta = _update_n_sharded(u, frozen, state.iteration, mesh, num_steps,
-                                 chunk_depth, kernel)
+                                 chunk_depth)
     return dataclasses.replace(
         state,
         u=u[:d, :h, :w],
@@ -849,12 +419,13 @@ def update_n(state: GridState, num_steps: int, mesh: Mesh,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "stagger", "max_iterations", "dims", "kernel"),
-    donate_argnums=(0, 1),
+    static_argnames=("mesh", "stagger", "max_iterations", "dims",
+                     "chunk_depth"),
+    donate_argnums=(0,),
 )
 def _solve_sharded(
     u, frozen, epsilon, mesh: Mesh, stagger: int, max_iterations: int,
-    dims, kernel: str,
+    dims, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
 ):
     m_max = max(dims)
 
@@ -865,7 +436,7 @@ def _solve_sharded(
     def body(carry):
         u, iteration, _, _ = carry
         u, delta = _update_n_sharded.__wrapped__(
-            u, frozen, iteration, mesh, 1, DEFAULT_CHUNK_DEPTH, kernel
+            u, frozen, iteration, mesh, 1, chunk_depth
         )
         iteration = iteration + 1
         done = (delta < epsilon) & (iteration >= m_max)
@@ -873,8 +444,7 @@ def _solve_sharded(
         def run_rest(args):
             u, iteration = args
             u, _ = _update_n_sharded.__wrapped__(
-                u, frozen, iteration, mesh, stagger - 1,
-                DEFAULT_CHUNK_DEPTH, kernel,
+                u, frozen, iteration, mesh, stagger - 1, chunk_depth,
             )
             return u, iteration + (stagger - 1)
 
@@ -891,42 +461,10 @@ def solve(
     mesh: Mesh,
     stagger: int = C.DEFAULT_STAGGER,
     max_iterations: int = 1_000_000,
-    kernel: str = "auto",
-    segment_iterations: int | None = None,
+    chunk_depth: int = DEFAULT_CHUNK_DEPTH,
 ) -> GridState:
-    """Sharded 3D solve-to-convergence; protocol identical to core.solve.
-
-    kernel="resident" keeps the whole while-loop inside shard_map on the
-    tile-pure guard-aligned layout (:mod:`epic_tpu.parallel.resident3d`);
-    "auto" picks it for wide-plane shards where plane-banding
-    degenerates. segment_iterations runs the resident solve as
-    watchdog-safe compiled segments (bit-identical trajectories)."""
-    if kernel == "auto" and _prefers_resident(
-            state.u.shape, mesh, DEFAULT_CHUNK_DEPTH):
-        kernel = "resident"
-    if kernel in ("resident", "resident_interpret"):
-        interp = True if kernel.endswith("_interpret") else None
-        if _has_z(mesh):
-            from . import resident_z
-
-            if segment_iterations is not None:
-                return resident_z.solve_segments(
-                    state, mesh, stagger, max_iterations,
-                    segment_iterations, interpret=interp)
-            return resident_z.solve(
-                state, mesh, stagger, max_iterations, interpret=interp)
-        from . import resident3d
-
-        if segment_iterations is not None:
-            return resident3d.solve_segments(
-                state, mesh, stagger, max_iterations, segment_iterations,
-                interpret=interp)
-        return resident3d.solve(
-            state, mesh, stagger, max_iterations, interpret=interp)
-    if segment_iterations is not None:
-        raise ValueError(
-            "segment_iterations requires the resident layout "
-            "(kernel='resident' or an auto-eligible wide-plane shard)")
+    """Sharded 3D solve-to-convergence; protocol identical to core.solve."""
+    _check_route(state.u.shape)
     d, h, w = state.u.shape
     u, frozen = _pad_for_mesh(state, mesh)
     sharding = NamedSharding(mesh, _spec(mesh))
@@ -934,7 +472,7 @@ def solve(
     frozen = jax.device_put(frozen, sharding)
     u, iteration, delta, converged = _solve_sharded(
         u, frozen, state.epsilon, mesh, stagger, max_iterations,
-        (d, h, w), kernel,
+        (d, h, w), chunk_depth,
     )
     return dataclasses.replace(
         state,

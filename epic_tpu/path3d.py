@@ -3,8 +3,8 @@
 The reference ships a 3D solver (harmonic_update_3d_cpu,
 /root/reference/libepic/src/harmonic/harmonic_cpu.cpp:81-133) but **no 3D
 path extraction** — harmonic_path_cpu.cpp is 2D-only, so its 3D fields were
-write-only. This module closes that gap so the TPU build's 3D solver
-(epic_tpu.solver.core / pallas_sweep3d) is usable end-to-end.
+write-only. This module closes that gap so this build's 3D solver
+(epic_tpu.solver.core) is usable end-to-end.
 
 Design: the natural 3D generalization of the 2D walker
 (:mod:`epic_tpu.path`), using the *fixed* interpolation variant (the 2D

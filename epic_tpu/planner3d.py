@@ -7,9 +7,8 @@ The reference's service layer is strictly 2D — its ROS node embeds a 2D
 only through raw library calls, with no path extraction to consume the
 field. This module closes that gap: the same verb surface as
 :class:`epic_tpu.planner.Planner` (SURVEY §2.1), generalized to volumes,
-backed by the TPU 3D kernels (:mod:`epic_tpu.solver.pallas_sweep3d`,
-:mod:`epic_tpu.solver.pallas_biggrid3d`) and the trilinear streamline
-walker (:mod:`epic_tpu.path3d`).
+backed by the XLA 3D sweep (:mod:`epic_tpu.solver.core`) and the
+trilinear streamline walker (:mod:`epic_tpu.path3d`).
 
 The core semantic carried over from the 2D planner (SURVEY §3.2) is
 unchanged: the planner never stops relaxing; verbs perturb ``u``/``locked``
@@ -28,7 +27,6 @@ from . import constants as C
 from . import grid as G
 from .errors import EpicError, InvalidLocationError
 from .path3d import compute_path
-from .solver import core
 
 logger = logging.getLogger("epic_tpu.planner3d")
 
@@ -46,7 +44,7 @@ class VolumePlannerConfig:
     origin_x: float = 0.0
     origin_y: float = 0.0
     origin_z: float = 0.0
-    backend: str = "auto"            # "auto" | "xla" | "pallas"
+    backend: str = "auto"            # "auto" | "xla" (solver.route)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +81,6 @@ class VolumePlanner:
         self.config = config or VolumePlannerConfig()
         self.state: G.GridState | None = None
         self.paused = False
-        # Anytime-loop padded-buffer cache, keyed on the exact state object
-        # (same invalidation discipline as Planner._pad_cache).
-        self._pad_cache: tuple[object, object] | None = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -98,14 +93,12 @@ class VolumePlanner:
         obstacle (epic_navigation_node_harmonic.cpp:207-244, :282-307)."""
         self.state = G.empty_volume(depth, height, width,
                                     epsilon=self.config.epsilon)
-        self._pad_cache = None
         logger.info("volume planner init %dx%dx%d eps=%g backend=%s",
                     width, height, depth, self.config.epsilon,
                     self.config.backend)
 
     def uninit(self) -> None:
         self.state = None
-        self._pad_cache = None
 
     def _require_state(self) -> G.GridState:
         if self.state is None:
@@ -144,30 +137,12 @@ class VolumePlanner:
     # -- the anytime loop --------------------------------------------------
 
     def _kernel_module(self):
-        """Solver-path selection, mirroring Planner._kernel_module: "xla"
-        forces solver.core; "auto" uses the Pallas 3D kernels on TPU (VMEM
-        kernel when the volume fits, plane-banded big-volume kernel when
-        its layout fits scoped VMEM, (z, y, x)-tiled kernel for wide-plane
-        volumes, and ``None`` — the XLA path — for tiny-dim wide-plane
-        shapes no tiled layout covers); "pallas" forces the Pallas kernels
-        anywhere (interpret mode off-TPU)."""
-        backend = self.config.backend
-        if backend == "xla":
-            return None
-        import jax
+        """The solver module :func:`epic_tpu.solver.route.choose` picks for
+        this volume (XLA on every platform: there is no 3D kernel)."""
+        from .solver import route
 
-        if backend != "pallas" and jax.default_backend() != "tpu":
-            return None
-        from .solver import pallas_biggrid3d, pallas_sweep3d, pallas_tiled3d
-
-        st = self._require_state()
-        if pallas_sweep3d.fits_vmem(st.u.shape):
-            return pallas_sweep3d
-        if pallas_biggrid3d.feasible(st.u.shape):
-            return pallas_biggrid3d
-        if pallas_tiled3d.feasible(st.u.shape):
-            return pallas_tiled3d
-        return None  # tiny-dim wide-plane volumes: XLA fallback
+        return route.module_for(self._require_state().u.shape,
+                                self.config.backend)
 
     def update(self, num_steps: int | None = None) -> None:
         """Run a chunk of relaxation sweeps (no-op when paused / uninit)."""
@@ -176,158 +151,16 @@ class VolumePlanner:
         n = num_steps if num_steps is not None else self.config.steps_per_update
         if n < 1:
             return
-        mod = self._kernel_module()
-        if mod is None:
-            self.state = core.update_n(self.state, n)
-            return
-        from .solver import pallas_biggrid3d, pallas_sweep3d
-
-        if mod is pallas_sweep3d:
-            self._update_vmem_cached(n)
-        elif mod is pallas_biggrid3d:
-            self._update_biggrid_cached(n)
-        else:
-            self._update_tiled3d_cached(n)
-
-    def _update_vmem_cached(self, n: int) -> None:
-        """VMEM-3D-kernel tick reusing padded buffers across ticks."""
-        import jax
-        import jax.numpy as jnp
-
-        from .solver import pallas_sweep3d
-
-        st = self.state
-        if self._pad_cache is not None and self._pad_cache[0] is st:
-            padded = self._pad_cache[1]
-        else:
-            padded = pallas_sweep3d.pad_state(st)
-        interpret = jax.default_backend() == "cpu"
-        u, delta = pallas_sweep3d.sweep3d_chunk(
-            padded.u, padded.frozen, st.iteration, n, interpret
-        )
-        new_padded = dataclasses.replace(padded, u=u)
-        d, h, w = st.u.shape
-        self.state = dataclasses.replace(
-            st,
-            u=u[:d, :h, :w],
-            iteration=st.iteration + n,
-            delta=delta,
-            converged=(delta < st.epsilon) if n == 1 else jnp.asarray(False),
-        )
-        self._pad_cache = (self.state, new_padded)
-
-    def _update_biggrid_cached(self, n: int) -> None:
-        """Banded big-volume tick (manual-DMA chunks) reusing the
-        guard-padded u/frozen buffers across ticks."""
-        import jax
-        import jax.numpy as jnp
-
-        from .solver import pallas_biggrid3d
-
-        from .solver import pallas_cycle
-
-        st = self.state
-        if self._pad_cache is not None and self._pad_cache[0] is st:
-            g, alt = self._pad_cache[1]
-        else:
-            g = pallas_biggrid3d.pad_state(st)
-            alt = None  # run_chain creates the ping-pong twin once
-        interpret = jax.default_backend() == "cpu"
-        u = g.u
-        delta = None
-        t = 0
-        n_full, rem = divmod(n, g.k)
-        if n_full:
-            u, alt, delta = pallas_cycle.run_chain(
-                pallas_cycle.sweep_cycle3d, u, alt, g.frozen, st.iteration,
-                n_full, g.k, g.band, g.hp, interpret=interpret,
-            )
-            t = n_full * g.k
-        if rem:
-            u, dd = pallas_biggrid3d.sweep_chunk_dma(
-                u, g.frozen, st.iteration + t, rem, g.band, g.k, g.hp,
-                interpret,
-            )
-            if delta is None:
-                delta = dd
-        new_g = dataclasses.replace(g, u=u)
-        dp = u.shape[0] // g.hp
-        u3 = u.reshape(dp, g.hp, u.shape[1])
-        self.state = dataclasses.replace(
-            st,
-            u=u3[g.k : g.k + g.depth, : g.height, : g.width],
-            iteration=st.iteration + n,
-            delta=delta,
-            converged=(delta < st.epsilon) if n == 1 else jnp.asarray(False),
-        )
-        self._pad_cache = (self.state, (new_g, alt))
-
-    def _update_tiled3d_cached(self, n: int) -> None:
-        """Wide-plane (z, y, x)-tiled tick reusing the guard-padded
-        buffers across ticks (the regime the plane-banded kernel cannot
-        compile for — pallas_biggrid3d.feasible)."""
-        import jax
-        import jax.numpy as jnp
-
-        from .solver import pallas_cycle, pallas_tiled3d
-
-        st = self.state
-        if self._pad_cache is not None and self._pad_cache[0] is st:
-            g, alt = self._pad_cache[1]
-        else:
-            g = pallas_tiled3d.pad_state(st)
-            alt = None  # run_chain creates the ping-pong twin once
-        interpret = jax.default_backend() == "cpu"
-        u = g.u
-        delta = None
-        t = 0
-        n_full, rem = divmod(n, g.k)
-        if n_full:
-            u, alt, delta = pallas_cycle.run_chain(
-                pallas_cycle.sweep_cycle_tiled3d, u, alt, g.frozen,
-                st.iteration, n_full, g.k, g.band, g.yt, g.wt, g.hp2,
-                interpret=interpret,
-            )
-            t = n_full * g.k
-        if rem:
-            u, dd = pallas_tiled3d.sweep_chunk_tiled3d(
-                u, g.frozen, st.iteration + t, rem, g.band, g.k, g.yt,
-                g.wt, g.hp2, interpret,
-            )
-            if delta is None:
-                delta = dd
-        new_g = dataclasses.replace(g, u=u)
-        self.state = dataclasses.replace(
-            st,
-            u=pallas_tiled3d.unpad(new_g),
-            iteration=st.iteration + n,
-            delta=delta,
-            converged=(delta < st.epsilon) if n == 1 else jnp.asarray(False),
-        )
-        self._pad_cache = (self.state, (new_g, alt))
+        self.state = self._kernel_module().update_n(self.state, n)
 
     def solve(self, max_iterations: int | None = None) -> None:
-        """Blocking solve-to-convergence through the auto-dispatching 3D
-        solve (harmonic_complete semantics).
-
-        ``max_iterations`` is the watchdog escape hatch documented on
-        solver.solve_grid: a solve is ONE device dispatch, so on
-        tunnelled/remote-worker TPU stacks cap it to keep a single
-        dispatch under ~45 s and loop on ``state.converged`` from the
-        host (a converged verdict from any capped segment is sound — it
-        passed a staggered check with the full propagation guard within
-        that segment)."""
-        from . import solver as S
-
+        """Blocking solve-to-convergence (harmonic_complete semantics);
+        ``max_iterations`` caps it, and a converged verdict from a capped
+        solve is protocol-sound."""
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        st = self._require_state()
-        self._pad_cache = None  # the solve donates/replaces the state
-        if self.config.backend == "xla":
-            self.state = core.solve(st, stagger=self.config.stagger,
-                                    max_iterations=cap)
-        else:
-            self.state = S.solve_volume(st, stagger=self.config.stagger,
-                                        max_iterations=cap)
+        self.state = self._kernel_module().solve(
+            self._require_state(), stagger=self.config.stagger,
+            max_iterations=cap)
 
     # -- service verbs -----------------------------------------------------
 

@@ -9,15 +9,14 @@ sharded across a ``jax.sharding.Mesh``:
 - the authoritative state is a mesh-resident
   :class:`epic_tpu.parallel.sharded.ShardedGrid`; anytime ticks run
   :func:`epic_tpu.parallel.sharded.update_n_resident` (K-deep halo
-  exchange + per-shard kernels, buffers donated across ticks — no re-pad,
-  no re-upload);
+  exchange + the XLA per-shard sweep, buffers donated across ticks — no
+  re-pad, no re-upload);
 - SetCells-family edits are scatters into the resident shards
   (:func:`epic_tpu.parallel.sharded.set_cells_resident`) — the owning
   shard takes the write, nothing is re-laid-out (SURVEY "warm-start under
   sharding");
-- blocking solves run the sharded solve (resident guard-aligned layout
-  where eligible, watchdog-safe segments on request) from the CURRENT
-  resident buffers — warm-started, like every other verb;
+- blocking solves run the sharded solve from the CURRENT resident
+  buffers — warm-started, like every other verb;
 - host-facing verbs (GetCell, ComputePath, occupancy ingest) gather once
   per verb batch through a lazily-invalidated host mirror — the analog of
   the reference's D2H sync per srvComputePath (:614-674).
@@ -52,13 +51,12 @@ class MeshPlanner(Planner):
     """Anytime harmonic planner whose grid lives sharded on a device mesh.
 
     Same verbs as :class:`Planner`; pass a ``Mesh`` (defaults to all
-    devices in a near-square 2D mesh). ``chunk_depth`` and ``kernel``
-    forward to the sharded update path ("auto" picks VMEM / banded-DMA /
-    resident per-shard kernels by shard extent).
+    devices in a near-square 2D mesh). ``chunk_depth`` (sweeps per halo
+    exchange) forwards to the sharded update path.
     """
 
     def __init__(self, config: PlannerConfig | None = None, mesh=None,
-                 chunk_depth: int | None = None, kernel: str = "auto"):
+                 chunk_depth: int | None = None):
         from .parallel import make_mesh
         from .parallel.sharded import DEFAULT_CHUNK_DEPTH
 
@@ -69,7 +67,6 @@ class MeshPlanner(Planner):
         self.mesh = mesh if mesh is not None else make_mesh()
         self.chunk_depth = (DEFAULT_CHUNK_DEPTH if chunk_depth is None
                             else chunk_depth)
-        self.kernel = kernel
 
     # -- state residency ---------------------------------------------------
 
@@ -119,8 +116,7 @@ class MeshPlanner(Planner):
         from .parallel.sharded import update_n_resident
 
         self._sh = update_n_resident(self._sh, n, self.mesh,
-                                     chunk_depth=self.chunk_depth,
-                                     kernel=self.kernel)
+                                     chunk_depth=self.chunk_depth)
         # Single-step ticks carry a meaningful converged verdict (the
         # delta IS the check value), matching core.update_n semantics.
         self._converged = (bool(np.asarray(self._sh.delta)
@@ -128,12 +124,9 @@ class MeshPlanner(Planner):
                            if n == 1 else False)
         self._invalidate()
 
-    def solve(self, max_iterations: int | None = None,
-              segment_iterations: int | None = None) -> None:
+    def solve(self, max_iterations: int | None = None) -> None:
         """Blocking sharded solve-to-convergence directly ON the resident
-        buffers (warm-started; no GridState round trip, no re-shard).
-        ``segment_iterations`` runs pipelined watchdog-safe compiled
-        segments on the resident layout."""
+        buffers (warm-started; no GridState round trip, no re-shard)."""
         from .parallel import sharded
 
         sh = self._sh
@@ -144,8 +137,7 @@ class MeshPlanner(Planner):
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
         self._sh, conv = sharded.solve_resident(
             sh, self.mesh, stagger=self.config.stagger,
-            max_iterations=cap, chunk_depth=self.chunk_depth,
-            kernel=self.kernel, segment_iterations=segment_iterations)
+            max_iterations=cap, chunk_depth=self.chunk_depth)
         self._converged = bool(np.asarray(conv))
         self._invalidate()
 
@@ -236,13 +228,11 @@ class MeshVolumePlanner(VolumePlanner):
     (:func:`sharded3d.update_n_resident3d`, ``set_cells_resident3d``,
     ``solve_resident3d``). Pass ``mesh=None`` for
     :func:`epic_tpu.parallel.sharded3d.choose_mesh3d`'s orientation pick
-    per ingested volume (z-major for cube regimes, plane-sharded for wide
-    planes). The reference cannot run 3D on an accelerator at all
-    (harmonic_gpu.cu:158-165), let alone across devices."""
+    per ingested volume. The reference cannot run 3D on an accelerator at
+    all (harmonic_gpu.cu:158-165), let alone across devices."""
 
-    def __init__(self, config=None, mesh=None, chunk_depth: int | None = None,
-                 kernel: str = "auto"):
-        from .parallel.sharded import DEFAULT_CHUNK_DEPTH
+    def __init__(self, config=None, mesh=None, chunk_depth: int | None = None):
+        from .parallel.sharded3d import DEFAULT_CHUNK_DEPTH
 
         self._sv = None
         self._host_state = None
@@ -252,7 +242,6 @@ class MeshVolumePlanner(VolumePlanner):
         self._mesh_auto = mesh is None
         self.chunk_depth = (DEFAULT_CHUNK_DEPTH if chunk_depth is None
                             else chunk_depth)
-        self.kernel = kernel
 
     def _mesh_for(self, shape):
         from .parallel.sharded3d import choose_mesh3d
@@ -303,15 +292,13 @@ class MeshVolumePlanner(VolumePlanner):
         from .parallel.sharded3d import update_n_resident3d
 
         self._sv = update_n_resident3d(self._sv, n, self.mesh,
-                                       chunk_depth=self.chunk_depth,
-                                       kernel=self.kernel)
+                                       chunk_depth=self.chunk_depth)
         self._converged = (bool(np.asarray(self._sv.delta)
                                 < float(np.asarray(self._sv.epsilon)))
                            if n == 1 else False)
         self._invalidate()
 
-    def solve(self, max_iterations: int | None = None,
-              segment_iterations: int | None = None) -> None:
+    def solve(self, max_iterations: int | None = None) -> None:
         from .parallel.sharded3d import solve_resident3d
 
         if self._sv is None:
@@ -321,8 +308,7 @@ class MeshVolumePlanner(VolumePlanner):
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
         self._sv, conv = solve_resident3d(
             self._sv, self.mesh, stagger=self.config.stagger,
-            max_iterations=cap, chunk_depth=self.chunk_depth,
-            kernel=self.kernel, segment_iterations=segment_iterations)
+            max_iterations=cap, chunk_depth=self.chunk_depth)
         self._converged = bool(np.asarray(conv))
         self._invalidate()
 

@@ -1,7 +1,7 @@
 """Message/service dataclasses mirroring the reference's RPC schema.
 
 The reference exposes ROS services (/root/reference/srv/*.srv) and
-nav_msgs/geometry_msgs types. ROS itself is not part of the TPU build; these
+nav_msgs/geometry_msgs types. ROS itself is not part of this build; these
 plain dataclasses carry the same fields so the service *semantics* (SURVEY
 §2.1) are preserved and a thin ROS adapter could be layered on unchanged.
 """

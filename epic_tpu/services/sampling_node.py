@@ -7,7 +7,7 @@ it: only RRT-Connect of its six algorithm enum slots is constructed
 (epic_navigation_node_ompl.cpp:166-169) and srvComputePath's path population
 is a TODO (epic_navigation_node_ompl.cpp:433-441). This module implements a
 *working* equivalent with the same surface and semantics, self-contained
-(no OMPL dependency — planners in NumPy; the service plane, not the TPU, is
+(no OMPL dependency — planners in NumPy; the service plane, not the accelerator, is
 the right home for sequential tree search):
 
 - same verb set: occupancy ingest, add_goals / remove_goals (exactly ONE

@@ -31,9 +31,8 @@ Client: EpicClient (below) or any JSON-capable peer.
 Cold start: the first spin tick jit-compiles the relaxation chunk for the
 map's shape; until it finishes, connections queue (the loop services
 sockets between ticks, exactly like the reference's spinOnce/update
-interleave). On normal backends this is seconds; through remote-compile
-tunnels it can be minutes — clients should connect with retries and a
-generous first-response timeout.
+interleave) — clients should connect with retries and a generous
+first-response timeout.
 """
 
 from __future__ import annotations
@@ -503,25 +502,17 @@ def main() -> None:  # pragma: no cover - CLI
     ap.add_argument("--epsilon", type=float, default=None)
     ap.add_argument("--steps-per-update", type=int, default=None)
     ap.add_argument("--backend", default=None,
-                    choices=["auto", "xla", "pallas"])
+                    choices=["auto", "xla", "cuda"],
+                    help="compute path (solver.route): auto = the CUDA sweep "
+                         "kernel for 2D grids on a GPU, XLA elsewhere")
     ap.add_argument("--kernel", default=None, choices=["masked"])
     ap.add_argument("--mesh", action="store_true",
                     help="run the node on planner_mesh.MeshPlanner: the "
                          "grid lives sharded across all visible devices "
-                         "(resident ticks/edits/solves)")
+                         "(ticks, edits and solves on the sharded state)")
     ap.add_argument("--log-json", action="store_true",
                     help="emit structured JSON-lines logs")
-    ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend via jax.config (environments"
-                         " that pin a backend at interpreter start override"
-                         " the JAX_PLATFORMS env var, so an env-level pin is"
-                         " not enough for hermetic runs)")
     args = ap.parse_args()
-
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     from ..metrics import configure_logging
 

@@ -1,6 +1,6 @@
 """Batched multi-scenario solves: vmap over (map, goal-set) lanes.
 
-The reference solves one map at a time on one GPU; the TPU-native win is
+The reference solves one map at a time on one GPU; the accelerator win is
 amortizing a whole batch of scenarios — shared base map with different
 goal-sets / obstacle edits, or entirely different maps of one shape — through
 the same compiled program (BASELINE.json config 3: 4096 solves/chip).

@@ -15,8 +15,7 @@ number of sweeps that certificate took) differs.
 This is an OPT-IN accelerator: nothing in the core protocol changes, and
 cold-start semantics stay the default everywhere. Typical effect: the fine
 level converges right after the propagation-guard floor instead of after
-O(diameter) sweeps (large_maze: ~1,000 vs 182,601 — see
-docs/BENCH_NOTES.md).
+O(diameter) sweeps (large_maze: ~1,000 vs 182,601).
 
 Level construction:
 
@@ -24,7 +23,7 @@ Level construction:
   priority: any goal child -> GOAL, else any obstacle child -> OBSTACLE,
   else FREE. Goal-wins keeps every goal basin present at every level;
   obstacle-wins-over-free keeps thin walls closed (paths can only
-  *disappear* at coarse levels, never tunnel through walls, so the warm
+  *disappear* at coarse levels, never leak through walls, so the warm
   field is conservative).
 - the upsampled log-potential seeds only FREE fine cells (nearest-neighbour
   repeat); locked cells are pinned to their exact values (0 / -1e6), and
@@ -152,10 +151,9 @@ def solve_cascade(
     /``delta`` semantics as :func:`core.solve`); ``iteration`` is the fine-
     level count only — see stats for the per-level breakdown.
 
-    ``solver(state, stagger=..., max_iterations=...)`` defaults to the
-    planner's auto choice: the VMEM Pallas kernel when it fits on an
-    accelerator backend, XLA otherwise (2D), or ``solver.solve_volume``'s
-    dispatch (3D). ``coarse_solver`` overrides the solver for the non-final
+    ``solver(state, stagger=..., max_iterations=...)`` defaults to
+    ``solver.solve_grid`` (the path ``solver.route`` picks for each level).
+    ``coarse_solver`` overrides the solver for the non-final
     levels (e.g. :func:`native_solver` to keep small levels off the device
     entirely); defaults to ``solver``.
     """

@@ -1,9 +1,9 @@
 """JAX/XLA log-space red-black relaxation — the portable compute path.
 
-This is the TPU-first re-design of the reference's twin CPU/GPU solvers
+This is the functional re-design of the reference's twin CPU/GPU solvers
 (/root/reference/libepic/src/harmonic/harmonic_cpu.cpp,
 harmonic_gpu.cu): one functional program, jitted for whatever backend is
-present (TPU, CPU). The mutable in-place checkerboard update is re-expressed
+present (GPU, CPU). The mutable in-place checkerboard update is re-expressed
 as a pure ``where``-masked stencil: because a cell's 4 (or 6) neighbours are
 always the opposite parity class, the reference's in-place "Gauss-Seidel"
 sweep is mathematically a Jacobi update on one parity class per iteration —
@@ -85,7 +85,7 @@ def sweep(u: jax.Array, locked: jax.Array, iteration: jax.Array):
     Returns ``(u_new, delta)`` where delta = max |u' - u| over updated cells
     (0 if the parity class is fully locked). Equivalent to
     harmonic_update_{2d,3d}_cpu with checkConvergence=True — computing delta
-    is fused and effectively free on TPU, so there is no separate "no check"
+    is fused into the same pass, so there is no separate "no check"
     kernel; the caller just ignores delta on unchecked sweeps.
     """
     inner = _interior(u)

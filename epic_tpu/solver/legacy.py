@@ -18,7 +18,7 @@ Three implementations:
   * ``sor_red_black_jax`` — a device-friendly red-black-ordered SOR. Not the
     same iteration ordering as the reference's row-major sweep (row-major
     Gauss-Seidel is inherently sequential), but the same fixed point and the
-    same precision-collapse behaviour, and it runs at TPU speed.
+    same precision-collapse behaviour, and it runs on the accelerator.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """tools/batch_bench.py — the reference battery harness (batch.py:105-164).
 
 Runs the harness end-to-end on a tiny procedural domain (CPU, XLA rows only;
-the Pallas rows are covered by the kernel suites and the on-chip CSVs in
-docs/). Checks the CSV contract and that the battery's three solver families
+the CUDA rows need a GPU). Checks the CSV contract and that the battery's three solver families
 agree on what the reference battery measures: percent-valid and iteration
 bookkeeping.
 """

@@ -48,7 +48,7 @@ def test_cascade_certificate_matches_protocol():
 
 def test_cascade_maze_stays_valid():
     """Thin-wall mazes coarsen conservatively (obstacle-wins): corridors can
-    close at coarse levels but never tunnel, so validity never regresses."""
+    close at coarse levels but never leak through walls, so validity never regresses."""
     img = maps.recursive_maze(128, 128, seed=7)
     cold, warm, stats = _solve_pair(img)
     assert bool(warm.converged)

@@ -6,7 +6,7 @@ import pytest
 
 import epic_tpu
 from epic_tpu import constants as C
-from epic_tpu.solver import core, pallas_sweep, reference_np
+from epic_tpu.solver import core, reference_np
 
 
 def _random_grid(rng, h, w):
@@ -79,137 +79,46 @@ def test_random_edit_sequences(seed):
         np.testing.assert_array_equal(np.asarray(st.locked), locked_ref)
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_random_grids_pallas_matches_oracle(seed):
-    rng = np.random.default_rng(200 + seed)
-    h, w = int(rng.integers(8, 48)), int(rng.integers(8, 80))
-    u, locked = _random_grid(rng, h, w)
-    steps = int(rng.integers(1, 10))
-    u_ref = u.copy()
-    for it in range(steps):
-        u_ref, _ = reference_np.sweep(u_ref, locked, it)
-    out = pallas_sweep.update_n(epic_tpu.make_state(u, locked), steps)
-    np.testing.assert_allclose(np.asarray(out.u), u_ref, rtol=2e-6, atol=1e-3)
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_random_grids_biggrid_matches_oracle(seed):
-    """The stacked-band big-grid kernel on random shapes/edit-free grids
-    (random band/k layouts, ragged heights, shallow remainder chunks)."""
-    from epic_tpu.solver import pallas_biggrid
-
-    rng = np.random.default_rng(300 + seed)
-    h, w = int(rng.integers(24, 90)), int(rng.integers(16, 120))
-    u, locked = _random_grid(rng, h, w)
-    steps = int(rng.integers(3, 40))
-    band = int(rng.integers(1, 4)) * 8
-    k = 8
-    u_ref = u.copy()
-    for it in range(steps):
-        u_ref, _ = reference_np.sweep(u_ref, locked, it)
-    st = epic_tpu.make_state(u, locked)
-    g = pallas_biggrid.pad_state(st, band=band, k=k)
-    fext = pallas_biggrid.stack_frozen(g.frozen, band, k)
-    import jax.numpy as jnp
-
-    u_pad = g.u
-    t = 0
-    while t < steps:
-        d = min(k, steps - t)
-        u_pad, _ = pallas_biggrid.sweep_chunk_bands(
-            u_pad, fext, jnp.int32(t), d, band, k, True
-        )
-        t += d
-    got = np.asarray(u_pad[k : k + h, :w])
-    np.testing.assert_allclose(got, u_ref, rtol=2e-6, atol=1e-3)
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_random_grids_tiled2d_matches_oracle(seed):
-    """The 2D-tiled kernel on random shapes (random band/k/tile layouts,
-    ragged widths across tile boundaries, shallow remainder chunks)."""
-    from epic_tpu.solver import pallas_tiled2d
-
-    rng = np.random.default_rng(400 + seed)
-    h, w = int(rng.integers(24, 90)), int(rng.integers(140, 400))
-    u, locked = _random_grid(rng, h, w)
-    steps = int(rng.integers(3, 40))
-    band = int(rng.integers(1, 4)) * 8
-    k = 8
-    wt = 128
-    u_ref = u.copy()
-    for it in range(steps):
-        u_ref, _ = reference_np.sweep(u_ref, locked, it)
-    st = epic_tpu.make_state(u, locked)
-    g = pallas_tiled2d.pad_state(st, band=band, k=k, wt=wt)
-    import jax.numpy as jnp
-
-    u_pad = g.u
-    t = 0
-    while t < steps:
-        d = min(k, steps - t)
-        u_pad, _ = pallas_tiled2d.sweep_chunk_tiled(
-            u_pad, g.frozen, jnp.int32(t), d, band, k, wt, True
-        )
-        t += d
-    hx = pallas_tiled2d._HX
-    got = np.asarray(u_pad[k : k + h, hx : hx + w])
-    np.testing.assert_allclose(got, u_ref, rtol=2e-6, atol=1e-3)
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_random_volumes_tiled3d_matches_oracle(seed):
-    """The wide-plane (z, y, x)-tiled 3D kernel on random volumes (random
-    band/yt layouts, ragged dims across every tile axis, shallow
-    remainder chunks)."""
-    import jax.numpy as jnp
-
-    from epic_tpu.solver import pallas_tiled3d
-
-    rng = np.random.default_rng(500 + seed)
-    d = int(rng.integers(6, 20))
-    h = int(rng.integers(18, 40))
-    w = int(rng.integers(130, 300))
+def _random_volume(rng, d, h, w, density=0.15):
     u = np.full((d, h, w), -1e6, dtype=np.float32)
     locked = np.zeros((d, h, w), dtype=bool)
     locked[0], locked[-1] = True, True
     locked[:, 0], locked[:, -1] = True, True
     locked[:, :, 0], locked[:, :, -1] = True, True
-    locked |= rng.random((d, h, w)) < 0.15
-    gz, gy, gx = (int(rng.integers(1, n - 1)) for n in (d, h, w))
+    locked |= rng.random((d, h, w)) < density
+    gz, gy, gx = (int(rng.integers(1, max(2, n - 1))) for n in (d, h, w))
     u[gz, gy, gx] = 0.0
     locked[gz, gy, gx] = True
-    steps = int(rng.integers(3, 12))
-    band = int(rng.choice([2, 4]))
-    k = 2
-    yt = int(rng.choice([8, 16]))
-    wt = 128
-    u_ref = u.copy()
-    for it in range(steps):
-        u_ref, _ = reference_np.sweep_3d(u_ref, locked, it)
-    st = epic_tpu.make_state(u, locked)
-    g = pallas_tiled3d.pad_state(st, band=band, k=k, yt=yt, wt=wt)
-    u_pad = g.u
-    t = 0
-    while t < steps:
-        dd = min(k, steps - t)
-        u_pad, _ = pallas_tiled3d.sweep_chunk_tiled3d(
-            u_pad, g.frozen, jnp.int32(t), dd, band, k, yt, wt, g.hp2, True
-        )
-        t += dd
-    got = np.asarray(pallas_tiled3d.unpad(
-        pallas_tiled3d.TiledVolume(
-            u=u_pad, frozen=g.frozen, depth=d, height=h, width=w,
-            hp2=g.hp2, band=band, k=k, yt=yt, wt=wt)))
-    np.testing.assert_allclose(got, u_ref, rtol=2e-6, atol=1e-3)
+    return u, locked
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_random_volumes_resident_z_matches_oracle(seed):
-    """The z-resident shard layout on random volumes over random z-mesh
-    sizes (ragged depths: round-up tail shards, odd per-shard z parity
-    origins, sub-k and remainder chunk counts)."""
-    from epic_tpu.parallel import resident_z
+def test_random_volumes_update_volume_matches_oracle(seed):
+    """solver.update_volume (the routed 3D path: XLA) on random wide-plane
+    volumes with ragged dims, against the NumPy oracle."""
+    from epic_tpu import solver
+
+    rng = np.random.default_rng(500 + seed)
+    d = int(rng.integers(6, 20))
+    h = int(rng.integers(18, 40))
+    w = int(rng.integers(130, 300))
+    u, locked = _random_volume(rng, d, h, w)
+    steps = int(rng.integers(3, 12))
+    u_ref = u.copy()
+    for it in range(steps):
+        u_ref, _ = reference_np.sweep_3d(u_ref, locked, it)
+    out = solver.update_volume(epic_tpu.make_state(u, locked), steps)
+    np.testing.assert_allclose(np.asarray(out.u), u_ref, rtol=2e-6, atol=1e-3)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_random_volumes_z_mesh_matches_oracle(seed):
+    """The sharded 3D path on a z-only mesh of random size (ragged depths:
+    round-up tail shards, odd per-shard z parity origins, sub-k and
+    remainder chunk counts), against the NumPy oracle."""
+    import jax
+
+    from epic_tpu.parallel import sharded3d
     from epic_tpu.parallel.sharded3d import make_mesh3d
 
     rng = np.random.default_rng(900 + seed)
@@ -217,24 +126,14 @@ def test_random_volumes_resident_z_matches_oracle(seed):
     d = int(rng.integers(nmz, 4 * nmz + 3))
     h = int(rng.integers(10, 40))
     w = int(rng.integers(100, 300))
-    u = np.full((d, h, w), -1e6, dtype=np.float32)
-    locked = np.zeros((d, h, w), dtype=bool)
-    locked[0], locked[-1] = True, True
-    locked[:, 0], locked[:, -1] = True, True
-    locked[:, :, 0], locked[:, :, -1] = True, True
-    locked |= rng.random((d, h, w)) < 0.15
-    gz, gy, gx = (int(rng.integers(1, max(2, n - 1))) for n in (d, h, w))
-    u[gz, gy, gx] = 0.0
-    locked[gz, gy, gx] = True
+    u, locked = _random_volume(rng, d, h, w)
     steps = int(rng.integers(1, 9))
     u_ref = u.copy()
     for it in range(steps):
         u_ref, _ = reference_np.sweep_3d(u_ref, locked, it)
-    import jax
-
     mesh = make_mesh3d((nmz, 1, 1), devices=np.asarray(jax.devices()[:nmz]))
-    st = epic_tpu.make_state(u, locked)
-    out = resident_z.update_n(st, steps, mesh)
+    out = sharded3d.update_n(epic_tpu.make_state(u, locked), steps, mesh,
+                             chunk_depth=2)
     np.testing.assert_allclose(
         np.asarray(out.u), u_ref, rtol=2e-6, atol=1e-4
     )

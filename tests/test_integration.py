@@ -1,6 +1,7 @@
 """Cross-backend integration: the full anytime replanning workflow produces
-identical state whether sweeps run through XLA, the Pallas VMEM kernel
-(interpret), or the sharded mesh path — including warm-started edits."""
+identical state whether sweeps run through XLA, the CUDA kernel's blocked
+schedule (its CPU model), or the sharded mesh path — including
+warm-started edits."""
 
 import numpy as np
 import jax
@@ -9,7 +10,7 @@ import epic_tpu
 from epic_tpu import constants as C
 from epic_tpu import maps
 from epic_tpu.parallel import make_mesh, sharded
-from epic_tpu.solver import core, pallas_sweep
+from epic_tpu.solver import core, cuda_sweep
 
 
 def _workflow(stepper):
@@ -27,7 +28,8 @@ def _workflow(stepper):
 
 def test_workflow_identical_across_backends():
     u_xla, it_xla = _workflow(core.update_n)
-    u_pal, it_pal = _workflow(lambda s, n: pallas_sweep.update_n(s, n))
+    u_pal, it_pal = _workflow(
+        lambda s, n: cuda_sweep.update_n(s, n, interpret=True))
     mesh = make_mesh((2, 4))
     u_shd, it_shd = _workflow(lambda s, n: sharded.update_n(s, n, mesh))
     assert it_xla == it_pal == it_shd == 100
@@ -49,9 +51,8 @@ def test_checkpoint_mid_workflow_roundtrip(tmp_path):
 
 
 def test_solve_grid_auto_dispatch_cpu():
-    """solver.solve_grid / update_grid: the 2D auto-dispatch twins of
-    solve_volume (on the hermetic CPU platform they route to core, which is
-    protocol-identical to the kernels)."""
+    """solver.solve_grid / update_grid route to core on the CPU platform
+    (protocol-identical to the CUDA kernel's path)."""
     import epic_tpu.solver as S
 
     img = maps.random_obstacles(48, 64, density=0.1, seed=3)
@@ -72,29 +73,24 @@ def test_solve_grid_auto_dispatch_cpu():
     assert int(S.update_grid(st4, 3).iteration) == 3
 
 
-def test_update_entries_reject_zero_steps_and_filter_kwargs():
-    """Review findings: num_steps < 1 must raise everywhere (core previously
-    applied one silent sweep), and kernel-only kwargs must not crash the
-    CPU/core dispatch route."""
+def test_update_entries_reject_zero_steps_and_removed_kwargs():
+    """num_steps < 1 raises on every stepper; the removed tiling and
+    segmented-solve options are no longer accepted by the entry points."""
     import pytest
 
     import epic_tpu.solver as S
-    from epic_tpu.solver import (
-        pallas_biggrid, pallas_biggrid3d, pallas_sweep, pallas_tiled2d,
-    )
 
     img = maps.random_obstacles(32, 40, density=0.1, seed=1)
     state = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
-    for fn in (core.update_n, pallas_sweep.update_n, pallas_biggrid.update_n,
-               pallas_tiled2d.update_n):
-        with pytest.raises(ValueError):
-            fn(state, 0)
-    st3 = epic_tpu.empty_volume(5, 6, 7, epsilon=1e-1)
     with pytest.raises(ValueError):
-        pallas_biggrid3d.update_n(st3, 0)
-
-    # Kernel-only kwargs are dropped on the core route (hermetic CPU here).
-    out = S.solve_grid(state, chunk_depth=8, interpret=True, max_iterations=50)
-    # the cap is coarse (checked at stagger-cycle boundaries); the point
-    # here is that kernel-only kwargs didn't crash the core route.
+        core.update_n(state, 0)
+    with pytest.raises(ValueError):
+        cuda_sweep.update_n(state, 0, interpret=True)
+    for kw in ({"chunk_depth": 8}, {"interpret": True},
+               {"segment_iterations": 100}):
+        with pytest.raises(TypeError):
+            S.solve_grid(state, max_iterations=50, **kw)
+    with pytest.raises(ValueError):
+        S.update_grid(state, 3, backend="pallas")
+    out = S.solve_grid(state, max_iterations=50)
     assert int(out.iteration) >= 1

@@ -1,11 +1,11 @@
-"""Cross-process multi-host validation (DCN stand-in: gloo over localhost).
+"""Cross-process multi-host validation (gloo over localhost).
 
-The reference is single-GPU with no distributed transport (SURVEY §5). The
-TPU build scales by configuration: jax.distributed + one global mesh. This
+The reference is single-GPU with no distributed transport (SURVEY §5). This
+build scales by configuration: jax.distributed + one global mesh. This
 test launches TWO separate Python processes, each owning 4 virtual CPU
 devices, wires them into one 8-device global mesh through
-``jax.distributed`` (exactly the wiring of a real multi-host pod, with the
-gloo CPU-collectives backend standing in for DCN), runs the sharded solve,
+``jax.distributed`` (the wiring of several hosts, with the gloo
+CPU-collectives backend carrying the collectives), runs the sharded solve,
 and asserts the result matches the single-process solver oracle — iteration
 count exact, field to float tolerance.
 
@@ -42,8 +42,7 @@ def _worker_state(size: int = 48, mode: str = "solve"):
 
     n = size
     if mode == "solve_resident":
-        # Wide grid so the 2x4 mesh's local blocks are 128-lane aligned
-        # (keep in lockstep with tools/multihost_worker.py).
+        # Wide grid (keep in lockstep with tools/multihost_worker.py).
         rng = np.random.default_rng(7)
         w = 512
         obstacle = np.zeros((n, w), dtype=bool)
@@ -139,7 +138,7 @@ def test_two_process_sharded_solve_matches_single_process(tmp_path, mode):
 
 def test_four_process_sharded_solve_matches_single_process(tmp_path):
     """4 processes x 2 local devices -> the same 8-device global mesh: more
-    inter-process (DCN-analog) halo edges, identical results required."""
+    inter-process halo edges, identical results required."""
     port = _free_port()
     out = tmp_path / "mh4.npz"
     env = dict(os.environ)

@@ -217,7 +217,7 @@ def test_iteration_drift_bounded_across_backends():
     (half-scale c_space / third-scale umass from the reference battery,
     libepic/tests/batch/batch.py:41-49), and both must satisfy the
     protocol invariant (≡ 1 mod stagger). The measured drift today is 0
-    here and ≤ 2 cycles on the full-scale TPU battery (BENCH_NOTES r4);
+    here;
     a protocol regression (wrong check cadence, sticky converged flag,
     off-by-one stagger) moves counts by many cycles and fails this."""
     for h, w in ((137, 174), (233, 72)):

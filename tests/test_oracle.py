@@ -181,12 +181,16 @@ def test_huge_epsilon_still_respects_propagation_guard():
     assert bool(out.converged)
 
 
-def test_pallas_solve_matches_protocol():
-    from epic_tpu.solver import pallas_sweep
+def test_cuda_sweep_solve_matches_protocol():
+    """The CUDA kernel's blocked schedule (its CPU model) runs the oracle's
+    protocol: same iteration count, same field."""
+    from epic_tpu.solver import cuda_sweep
 
     img = maps.random_obstacles(24, 20, density=0.15, seed=9)
     u, locked = _ingest(img)
     u_ref, iters_ref, _ = reference_np.solve(u, locked, epsilon=1e-2, stagger=10)
-    out = pallas_sweep.solve(make_state(u, locked, epsilon=1e-2), stagger=10)
+    out = cuda_sweep.solve(make_state(u, locked, epsilon=1e-2), stagger=10,
+                           geometry=cuda_sweep.Geometry(8, 8, 4, 64),
+                           interpret=True)
     assert int(out.iteration) == iters_ref
     np.testing.assert_allclose(np.asarray(out.u), u_ref, rtol=2e-6, atol=1e-3)

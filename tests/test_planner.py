@@ -127,7 +127,7 @@ def test_warm_restart_faster_than_cold():
 
 
 def test_solve_cap_then_host_loop_converges():
-    """solve(max_iterations=...) is the single-dispatch watchdog escape
+    """solve(max_iterations=...) is the single-dispatch cap escape
     hatch: a cap below the propagation guard cannot converge; looping
     capped segments from the host reaches a protocol-sound verdict."""
     img = maps.open_room(64, 64, goal=(50, 30))
@@ -246,34 +246,28 @@ def test_planner_from_epic_config():
     assert int(pl.state.iteration) == 77
 
 
-def test_planner_pad_cache_reuse_and_invalidation():
-    """Consecutive update() ticks reuse the padded buffers; any verb that
-    replaces the state invalidates the cache; results equal the XLA path."""
-    pl = Planner(PlannerConfig(epsilon=1e-2, backend="pallas"))
+def test_planner_cuda_ticks_and_edits_match_xla(cuda_model):
+    """On a GPU the planner ticks through the CUDA kernel (here its exact
+    CPU model); ticks and edits between them match the XLA path."""
+    from epic_tpu.solver import cuda_sweep
+
+    pl = Planner(PlannerConfig(epsilon=1e-2, backend="auto"))
     ref = Planner(PlannerConfig(epsilon=1e-2, backend="xla"))
     for p in (pl, ref):
         p.init(40, 40)
         p.add_goals([(20.0, 20.0)])
-    pl.update(10)
-    ref.update(10)
-    c1 = pl._pad_cache
-    assert c1 is not None and c1[0] is pl.state
-    pl.update(10)
-    ref.update(10)
-    assert pl._pad_cache[0] is pl.state and pl._pad_cache is not c1
-    np.testing.assert_allclose(
-        np.asarray(pl.state.u), np.asarray(ref.state.u), rtol=0, atol=1e-5
-    )
-    # Edits invalidate; the next tick rebuilds and stays correct.
+    assert pl._kernel_module() is cuda_sweep
+    for n in (10, 10, 1):
+        pl.update(n)
+        ref.update(n)
+    np.testing.assert_array_equal(np.asarray(pl.state.u), np.asarray(ref.state.u))
+    assert bool(pl.state.converged) == bool(ref.state.converged)
     pl.set_cells([(5, 5)], [C.CELL_TYPE_OBSTACLE])
     ref.set_cells([(5, 5)], [C.CELL_TYPE_OBSTACLE])
-    assert pl._pad_cache[0] is not pl.state
     pl.update(11)
     ref.update(11)
-    np.testing.assert_allclose(
-        np.asarray(pl.state.u), np.asarray(ref.state.u), rtol=0, atol=1e-5
-    )
-    assert int(pl.state.iteration) == int(ref.state.iteration)
+    np.testing.assert_array_equal(np.asarray(pl.state.u), np.asarray(ref.state.u))
+    assert int(pl.state.iteration) == int(ref.state.iteration) == 32
 
 
 def test_compute_paths_batch_matches_scalar_walks():
@@ -297,27 +291,15 @@ def test_compute_paths_batch_matches_scalar_walks():
     assert n_ok == 3
 
 
-def test_biggrid_tile_config_wiring():
-    """SolverConfig.tile_band/tile_depth reach the big-grid layout."""
+@pytest.mark.parametrize("key", ["tile_band", "tile_depth"])
+def test_removed_tile_options_rejected(key):
+    """The tiling options of the removed kernels are gone."""
     from epic_tpu.config import EpicConfig, SolverConfig
 
-    pl = Planner(EpicConfig(solver=SolverConfig(
-        backend="pallas", tile_band=24, tile_depth=8)))
-    # Force a grid past the VMEM budget classifier? Not needed — call the
-    # cached big-grid path directly to check the layout parameters.
-    pl.init(64, 64)
-    pl.add_goals([(32.0, 32.0)])
-    pl._update_biggrid_cached(8)
-    g = pl._pad_cache[1][0]
-    assert (g.band, g.k) == (24, 8)
-    # And the result still matches the XLA path exactly.
-    ref = Planner(PlannerConfig(epsilon=pl.config.epsilon, backend="xla"))
-    ref.init(64, 64)
-    ref.add_goals([(32.0, 32.0)])
-    ref.update(8)
-    np.testing.assert_allclose(
-        np.asarray(pl.state.u), np.asarray(ref.state.u), rtol=0, atol=1e-5
-    )
+    with pytest.raises(TypeError):
+        SolverConfig(**{key: 8})
+    with pytest.raises(ValueError, match="unknown solver config keys"):
+        EpicConfig.from_dict({"solver": {key: 8}})
 
 
 def test_planner_cascade_solve():
@@ -338,22 +320,24 @@ def test_planner_cascade_solve():
     assert len(poses) > 2
 
 
-def test_tiled_cached_tick_matches_xla():
-    """The wide-grid tiled tick (pallas_tiled2d) through the planner's pad
-    cache matches the XLA path and reuses buffers across ticks."""
-    pl = Planner(PlannerConfig(epsilon=1e-2, backend="pallas"))
-    pl.init(40, 48)
-    pl.add_goals([(20.0, 24.0)])
-    pl._update_tiled_cached(10)
-    c1 = pl._pad_cache
-    assert c1 is not None and c1[0] is pl.state
-    pl._update_tiled_cached(13)
-    assert pl._pad_cache[0] is pl.state and pl._pad_cache is not c1
+def test_planner_cuda_solve_matches_xla(cuda_model):
+    """The blocking solve on the CUDA path keeps the protocol: same
+    iteration count, verdict and field as the XLA solve."""
+    pl = Planner(PlannerConfig(epsilon=1e-2, backend="cuda"))
     ref = Planner(PlannerConfig(epsilon=1e-2, backend="xla"))
-    ref.init(40, 48)
-    ref.add_goals([(20.0, 24.0)])
-    ref.update(23)
-    np.testing.assert_allclose(
-        np.asarray(pl.state.u), np.asarray(ref.state.u), rtol=0, atol=1e-5
-    )
+    for p in (pl, ref):
+        p.init(40, 48)
+        p.add_goals([(20.0, 24.0)])
+        p.update(23)
+        p.solve()
     assert int(pl.state.iteration) == int(ref.state.iteration)
+    assert bool(pl.state.converged) and bool(ref.state.converged)
+    np.testing.assert_array_equal(np.asarray(pl.state.u), np.asarray(ref.state.u))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "resident", "metal"])
+def test_removed_backends_rejected(backend):
+    pl = Planner(PlannerConfig(epsilon=1e-2, backend=backend))
+    pl.init(16, 16)
+    with pytest.raises(ValueError, match="unknown solver backend"):
+        pl.update(3)

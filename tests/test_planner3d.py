@@ -86,64 +86,46 @@ def test_update_matches_core(planner):
     )
 
 
-def test_forced_pallas_backend_matches_xla():
-    """backend="pallas" routes ticks through the 3D kernels (interpret mode
-    on CPU) and must stay bit-identical to the XLA tick."""
+def test_auto_backend_matches_xla():
+    """backend="auto" routes volumes to XLA on every platform (there is no
+    3D kernel); two ticks stay bit-identical to the forced XLA path."""
+    from epic_tpu.solver import core
+
     p_x = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="xla"))
-    p_p = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="pallas"))
-    for p in (p_x, p_p):
-        p.init(24, 16, 12)
-        p.add_goals([(12.0, 8.0, 6.0)])
-        p.update(9)
-        p.update(9)  # second tick exercises the pad cache
-    np.testing.assert_array_equal(
-        np.asarray(p_x.state.u), np.asarray(p_p.state.u)
-    )
-    assert int(p_x.state.iteration) == int(p_p.state.iteration) == 18
-
-
-def test_forced_biggrid_tick_matches_xla(monkeypatch):
-    """Volumes past the VMEM budget route ticks through the banded kernel;
-    force that path on a small volume and check bit-parity + cache reuse."""
-    from epic_tpu.solver import pallas_sweep3d
-
-    monkeypatch.setattr(pallas_sweep3d, "fits_vmem", lambda shape: False)
-    p_x = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="xla"))
-    p_b = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="pallas"))
-    for p in (p_x, p_b):
+    p_a = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="auto"))
+    for p in (p_x, p_a):
         p.init(24, 16, 12)
         p.add_goals([(12.0, 8.0, 6.0)])
         p.update(9)
         p.update(9)
+    assert p_a._kernel_module() is core
     np.testing.assert_array_equal(
-        np.asarray(p_x.state.u), np.asarray(p_b.state.u)
+        np.asarray(p_x.state.u), np.asarray(p_a.state.u)
     )
-    assert int(p_b.state.iteration) == 18
+    assert int(p_x.state.iteration) == int(p_a.state.iteration) == 18
 
 
-def test_forced_tiled3d_tick_matches_xla(monkeypatch):
-    """Wide-plane volumes (plane-banded layout infeasible) route ticks
-    through the (z, y, x)-tiled kernel; force that path on a small volume
-    and check bit-parity + pad-cache reuse across ticks."""
-    from epic_tpu.solver import pallas_biggrid3d, pallas_sweep3d
+def test_volume_routes_to_xla_on_gpu(cuda_model):
+    """On a GPU, volumes still take XLA (the CUDA kernel is 2D only), and
+    forcing backend="cuda" on a volume is an error."""
+    from epic_tpu.solver import core
 
-    monkeypatch.setattr(pallas_sweep3d, "fits_vmem", lambda shape: False)
-    monkeypatch.setattr(pallas_biggrid3d, "feasible",
-                        lambda shape, chunk_depth=2: False)
-    p_x = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="xla"))
-    p_t = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="pallas"))
-    for p in (p_t, p_x):
-        p.init(140, 34, 8)  # h=34 >= the smallest y-tile, w=140 >= 1 x-tile
-        p.add_goals([(70.0, 17.0, 4.0)])
+    p_a = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="auto"))
+    p_a.init(24, 16, 12)
+    assert p_a._kernel_module() is core
+    p_c = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend="cuda"))
+    p_c.init(24, 16, 12)
+    with pytest.raises(ValueError, match="2D grids"):
+        p_c.update(3)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "resident_interpret"])
+def test_removed_3d_backends_rejected(backend):
+    """The removed 3D kernel options are rejected."""
+    p = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, backend=backend))
+    p.init(140, 34, 8)
+    with pytest.raises(ValueError, match="unknown solver backend"):
         p.update(5)
-        p.update(5)
-    from epic_tpu.solver import pallas_tiled3d
-
-    assert p_t._kernel_module() is pallas_tiled3d
-    np.testing.assert_array_equal(
-        np.asarray(p_x.state.u), np.asarray(p_t.state.u)
-    )
-    assert int(p_t.state.iteration) == 10
 
 
 def test_solve_to_convergence_and_protocol(planner):

@@ -45,13 +45,11 @@ def test_sharded_volume_warm_loop_with_edits(meshz8):
     edits = ([(10, 11, 5), (20, 7, 9), (10, 11, 5)],
              [C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_GOAL, C.CELL_TYPE_FREE])
 
-    sv = sharded3d.update_n_resident3d(sv, 5, meshz8,
-                                       kernel="resident_interpret")
+    sv = sharded3d.update_n_resident3d(sv, 5, meshz8, chunk_depth=2)
     ref = core.update_n(ref, 5)
     sv = sharded3d.set_cells_resident3d(sv, *edits)
     ref = G.set_cells_3d(ref, *edits)
-    sv = sharded3d.update_n_resident3d(sv, 7, meshz8,
-                                       kernel="resident_interpret")
+    sv = sharded3d.update_n_resident3d(sv, 7, meshz8)
     ref = core.update_n(ref, 7)
 
     back = sharded3d.unshard3d(sv)
@@ -71,17 +69,14 @@ def test_sharded_volume_warm_loop_with_edits(meshz8):
 def test_solve_resident3d_matches_core(meshz8):
     st = _volume()
     ref = core.solve(_volume(), stagger=10)
-    for seg in (None, 93):
-        sv = sharded3d.shard_state3d(st, meshz8)
-        sv2, conv = sharded3d.solve_resident3d(
-            sv, meshz8, stagger=10, kernel="resident_interpret",
-            segment_iterations=seg)
-        assert bool(conv)
-        assert int(sv2.iteration) == int(ref.iteration)
-        back = sharded3d.unshard3d(sv2)
-        np.testing.assert_allclose(
-            np.asarray(back.u), np.asarray(ref.u), rtol=0, atol=1e-3
-        )
+    sv = sharded3d.shard_state3d(st, meshz8)
+    sv2, conv = sharded3d.solve_resident3d(sv, meshz8, stagger=10)
+    assert bool(conv)
+    assert int(sv2.iteration) == int(ref.iteration)
+    back = sharded3d.unshard3d(sv2)
+    np.testing.assert_allclose(
+        np.asarray(back.u), np.asarray(ref.u), rtol=0, atol=1e-3
+    )
 
 
 def test_mesh_volume_planner_session_matches_volume_planner(meshz8):
@@ -89,7 +84,7 @@ def test_mesh_volume_planner_session_matches_volume_planner(meshz8):
     reset, warm solve) matches the single-device VolumePlanner."""
     cfg = VolumePlannerConfig(epsilon=1e-2, steps_per_update=6)
     p1 = VolumePlanner(cfg)
-    p2 = MeshVolumePlanner(cfg, mesh=meshz8, kernel="resident_interpret")
+    p2 = MeshVolumePlanner(cfg, mesh=meshz8)
     for pl in (p1, p2):
         pl.state = _volume()   # fresh per planner: solver verbs donate
         pl.update()
@@ -109,21 +104,27 @@ def test_mesh_volume_planner_session_matches_volume_planner(meshz8):
     )
 
 
-def test_mesh_volume_planner_auto_mesh_orientation():
-    """mesh=None picks the orientation per volume (z-major here: a cube
-    whose z covers the 8 devices)."""
-    p = MeshVolumePlanner(VolumePlannerConfig(epsilon=1e-1),
-                          kernel="resident_interpret")
-    p.state = _volume(d=16, h=16, w=128, density=0.0)
-    assert "mz" in p.mesh.shape and p.mesh.shape["mz"] == len(jax.devices())
+@pytest.mark.parametrize("d,z_major", [(16, True), (8, True), (5, False)])
+def test_mesh_volume_planner_auto_mesh_orientation(d, z_major):
+    """mesh=None picks the orientation per volume: z-major when every
+    device gets at least one plane, else the plane mesh."""
+    p = MeshVolumePlanner(VolumePlannerConfig(epsilon=1e-1))
+    p.state = _volume(d=d, h=16, w=128, density=0.0)
+    assert ("mz" in p.mesh.shape) == z_major
+    assert p.mesh.devices.size == len(jax.devices())
     p.update(4)
     assert int(p.state.iteration) == 4
 
 
-def test_unknown_kernel_raises_3d(meshz8):
+def test_removed_kernel_options_raise_3d(meshz8):
     st = _volume()
     sv = sharded3d.shard_state3d(st, meshz8)
-    with pytest.raises(ValueError, match="unknown sharded 3D kernel"):
-        sharded3d.update_n_resident3d(sv, 1, meshz8, kernel="bogus")
-    with pytest.raises(ValueError, match="unknown sharded 3D kernel"):
-        sharded3d.update_n(_volume(), 1, meshz8, kernel="bogus")
+    with pytest.raises(TypeError):
+        sharded3d.update_n_resident3d(sv, 1, meshz8, kernel="resident")
+    with pytest.raises(TypeError):
+        sharded3d.update_n(_volume(), 1, meshz8, kernel="pallas")
+    with pytest.raises(TypeError):
+        MeshVolumePlanner(VolumePlannerConfig(), mesh=meshz8,
+                          kernel="resident_interpret")
+
+

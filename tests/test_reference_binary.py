@@ -190,7 +190,7 @@ def _ref_solve_recording_checks(ref: RefHarmonic, m_max: int, stagger: int):
 # subtracts a *double* log(2n) (harmonic_cpu.cpp:70 — float + std::log(2.0*n)
 # promotes), while its GPU kernel subtracts the f32 literal 1.38629436f
 # (harmonic_gpu.cu:61). Our stack pins the f32 flavor everywhere (oracle,
-# XLA, Pallas, native C++ — bit-identical to each other), so comparisons
+# XLA, the CUDA kernel model, native C++ — bit-identical to each other), so comparisons
 # against the prebuilt CPU binary carry a ~1-ulp-per-sweep random-walk drift:
 # measured 1.6e-4 after 300 sweeps on maze/umass, 1.3e-4 after full fuzz
 # solves. Tolerances below are those measurements with > 5x headroom.
@@ -484,7 +484,7 @@ def test_legacy_path_matches_binary():
 
 # ---------------------------------------------------------------------------
 # 3D solver vs the binary (harmonic_update_3d_cpu, harmonic_cpu.cpp:81-133 —
-# the reference's 3D exists on CPU only; our TPU kernels are cross-tested
+# the reference's 3D exists on CPU only; our solvers are cross-tested
 # against the same oracle this section anchors to the binary).
 # ---------------------------------------------------------------------------
 

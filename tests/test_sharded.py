@@ -108,81 +108,10 @@ def test_chunk_depths_equivalent(mesh8):
     )
 
 
-def test_pallas_composition_matches_xla(mesh8):
-    """shard_map + per-shard Pallas VMEM kernel (interpret mode on the CPU
-    mesh) must equal the XLA per-shard path bit-for-bit."""
+def test_sharded_chunks_match_core(mesh8):
+    """shard_map + the XLA per-shard sweep: 21 sweeps as 8 + 8 + 5 with
+    K-deep halo exchanges equal the single-device path."""
     img = maps.random_obstacles(48, 64, density=0.15, seed=11)
-    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    sh = NamedSharding(mesh8, P("my", "mx"))
-    u, frozen = sharded._pad_for_mesh(st, mesh8)
-    u1 = jax.device_put(u, sh)
-    u2 = jax.device_put(u, sh)
-    frozen = jax.device_put(frozen, sh)
-    out_x, d_x = sharded._update_n_sharded(
-        u1, frozen, st.iteration, mesh8, 21, 8, "xla"
-    )
-    out_p, d_p = sharded._update_n_sharded(
-        u2, frozen, st.iteration, mesh8, 21, 8, "pallas_interpret"
-    )
-    np.testing.assert_array_equal(np.asarray(out_x), np.asarray(out_p))
-    assert float(d_x) == float(d_p)
-
-
-def test_banded_composition_matches_xla(mesh8):
-    """shard_map + per-shard banded DMA kernel (the beyond-VMEM regime,
-    forced here via kernel=) must equal the XLA per-shard path bit-for-bit,
-    including a remainder chunk shallower than the exchange depth."""
-    img = maps.random_obstacles(48, 64, density=0.15, seed=11)
-    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    sh = NamedSharding(mesh8, P("my", "mx"))
-    u, frozen = sharded._pad_for_mesh(st, mesh8)
-    u1 = jax.device_put(u, sh)
-    u2 = jax.device_put(u, sh)
-    frozen = jax.device_put(frozen, sh)
-    out_x, d_x = sharded._update_n_sharded(
-        u1, frozen, st.iteration, mesh8, 21, 8, "xla"
-    )
-    out_b, d_b = sharded._update_n_sharded(
-        u2, frozen, st.iteration, mesh8, 21, 8, "pallas_banded_interpret"
-    )
-    np.testing.assert_array_equal(np.asarray(out_x), np.asarray(out_b))
-    assert float(d_x) == float(d_b)
-
-
-def test_banded_multiband_nonaligned(mesh8):
-    """Banded per-shard path with >1 band per shard (tiny band budget via a
-    monkeypatched EXT budget is avoided — instead shard heights above one
-    band arise naturally once h_loc > band_max; here we just force several
-    bands by using a tall non-mesh-aligned grid) equals XLA."""
-    img = maps.open_room(70, 53)
-    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    sh = NamedSharding(mesh8, P("my", "mx"))
-    u, frozen = sharded._pad_for_mesh(st, mesh8)
-    u1 = jax.device_put(u, sh)
-    u2 = jax.device_put(u, sh)
-    frozen = jax.device_put(frozen, sh)
-    out_x, d_x = sharded._update_n_sharded(
-        u1, frozen, st.iteration, mesh8, 9, 4, "xla"
-    )
-    out_b, d_b = sharded._update_n_sharded(
-        u2, frozen, st.iteration, mesh8, 9, 4, "pallas_banded_interpret"
-    )
-    np.testing.assert_array_equal(np.asarray(out_x), np.asarray(out_b))
-    assert float(d_x) == float(d_b)
-
-
-def test_banded_tiny_shard_rejected(mesh8):
-    """Forcing kernel='pallas_banded' on shards shorter than the 4-cell
-    sublane-aligned exchange depth must raise a clear ValueError instead of
-    failing at trace time with a shape mismatch (auto-dispatch never routes
-    such tiny shards to the banded path)."""
-    img = maps.open_room(6, 8)  # 2x4 mesh -> 3x2 local shards
     st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -190,20 +119,78 @@ def test_banded_tiny_shard_rejected(mesh8):
     u, frozen = sharded._pad_for_mesh(st, mesh8)
     u = jax.device_put(u, sh)
     frozen = jax.device_put(frozen, sh)
-    with pytest.raises(ValueError, match="at least 4 cells"):
-        sharded._update_n_sharded(
-            u, frozen, st.iteration, mesh8, 4, 4, "pallas_banded_interpret"
-        )
+    out, d = sharded._update_n_sharded(u, frozen, st.iteration, mesh8, 21, 8)
+    ref = core.update_n(epic_tpu.from_occupancy_image(img, epsilon=1e-2), 21)
+    h, w = st.u.shape
+    np.testing.assert_allclose(np.asarray(out)[:h, :w], np.asarray(ref.u),
+                               rtol=0, atol=2e-6)
+    assert float(d) == float(ref.delta)
 
 
-def test_banded_solve_matches_core(mesh8):
-    """Full sharded solve through the banded per-shard kernel: protocol
-    (iteration count) identical, field equal to the single-device solve."""
+def test_sharded_remainder_chunk_matches_core(mesh8):
+    """A remainder chunk shallower than the exchange depth (21 = 16 + 5)
+    keeps the global parity and the first sweep's delta."""
+    img = maps.random_obstacles(48, 64, density=0.15, seed=11)
+    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    sh = NamedSharding(mesh8, P("my", "mx"))
+    u, frozen = sharded._pad_for_mesh(st, mesh8)
+    u = jax.device_put(u, sh)
+    frozen = jax.device_put(frozen, sh)
+    out, d = sharded._update_n_sharded(u, frozen, st.iteration, mesh8, 21, 16)
+    ref = core.update_n(epic_tpu.from_occupancy_image(img, epsilon=1e-2), 21)
+    h, w = st.u.shape
+    np.testing.assert_allclose(np.asarray(out)[:h, :w], np.asarray(ref.u),
+                               rtol=0, atol=2e-6)
+    assert float(d) == float(ref.delta)
+
+
+def test_sharded_tall_nonaligned_matches_core(mesh8):
+    """A tall grid that the (2, 4) mesh does not divide: padding must not
+    leak into the field or the delta."""
+    img = maps.open_room(70, 53)
+    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    sh = NamedSharding(mesh8, P("my", "mx"))
+    u, frozen = sharded._pad_for_mesh(st, mesh8)
+    u = jax.device_put(u, sh)
+    frozen = jax.device_put(frozen, sh)
+    out, d = sharded._update_n_sharded(u, frozen, st.iteration, mesh8, 9, 4)
+    ref = core.update_n(epic_tpu.from_occupancy_image(img, epsilon=1e-2), 9)
+    h, w = st.u.shape
+    np.testing.assert_allclose(np.asarray(out)[:h, :w], np.asarray(ref.u),
+                               rtol=0, atol=2e-6)
+    assert float(d) == float(ref.delta)
+
+
+def test_sharded_tiny_shards_match_core(mesh8):
+    """Shards smaller than the requested halo depth (3 x 2 local blocks):
+    the exchange depth clamps to the shard and the result stays exact."""
+    img = maps.open_room(6, 8)
+    st = epic_tpu.from_occupancy_image(img, epsilon=1e-2)
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    sh = NamedSharding(mesh8, P("my", "mx"))
+    u, frozen = sharded._pad_for_mesh(st, mesh8)
+    u = jax.device_put(u, sh)
+    frozen = jax.device_put(frozen, sh)
+    out, d = sharded._update_n_sharded(u, frozen, st.iteration, mesh8, 4, 4)
+    ref = core.update_n(epic_tpu.from_occupancy_image(img, epsilon=1e-2), 4)
+    h, w = st.u.shape
+    np.testing.assert_allclose(np.asarray(out)[:h, :w], np.asarray(ref.u),
+                               rtol=0, atol=2e-6)
+    assert float(d) == float(ref.delta)
+
+
+def test_sharded_solve_depth8_matches_core(mesh8):
+    """Full sharded solve with 8-deep halo chunks: protocol (iteration
+    count) identical, field equal to the single-device solve."""
     img = maps.random_obstacles(40, 48, density=0.1, seed=5)
     st1, st2 = _state(img), _state(img)
     out1 = core.solve(st1, stagger=10)
-    out2 = sharded.solve(st2, mesh8, stagger=10, chunk_depth=8,
-                         kernel="pallas_banded_interpret")
+    out2 = sharded.solve(st2, mesh8, stagger=10, chunk_depth=8)
     assert int(out1.iteration) == int(out2.iteration)
     assert bool(out2.converged)
     np.testing.assert_allclose(
@@ -277,14 +264,13 @@ def test_multihost_wrapper_single_process():
     assert captured == dict(addr="10.0.0.1:1234", n=4, pid=2)
 
 
-def test_update_n_resident_kernel_resident(mesh8):
-    """The ShardedGrid tick path routes kernel="resident" to the
-    guard-aligned resident layout (ADVICE r4: it used to fall through to
-    the XLA local-sweep branch) and matches the single-chip oracle."""
+def test_update_n_resident_wide_grid(mesh8):
+    """The ShardedGrid tick on a wide grid (24 x 128 local blocks) matches
+    the single-device oracle."""
     img = maps.random_obstacles(48, 512, density=0.1, seed=7)
     st = _state(img)
     sh = sharded.shard_state(st, mesh8)
-    sh = sharded.update_n_resident(sh, 9, mesh8, kernel="resident")
+    sh = sharded.update_n_resident(sh, 9, mesh8)
     ref = core.update_n(st, 9)
     back = sharded.unshard(sh)
     assert int(back.iteration) == int(ref.iteration)
@@ -293,33 +279,39 @@ def test_update_n_resident_kernel_resident(mesh8):
     )
 
 
-def test_update_n_unknown_kernel_raises(mesh8):
-    """Unrecognized kernel strings error instead of silently running the
-    XLA fallback (ADVICE r4)."""
+def test_removed_kernel_options_and_platforms_raise(mesh8, monkeypatch):
+    """The per-shard kernel= and segment_iterations= options went with the
+    removed per-shard kernels; a platform the route does not know is an
+    error."""
+    from epic_tpu.solver import route
+
     img = maps.random_obstacles(48, 512, density=0.1, seed=7)
     st = _state(img)
     sh = sharded.shard_state(st, mesh8)
-    with pytest.raises(ValueError, match="unknown sharded kernel"):
-        sharded.update_n_resident(sh, 1, mesh8, kernel="bogus")
-    with pytest.raises(ValueError, match="unknown sharded kernel"):
-        sharded.update_n(st, 1, mesh8, kernel="bogus")
+    with pytest.raises(TypeError):
+        sharded.update_n_resident(sh, 1, mesh8, kernel="resident")
+    with pytest.raises(TypeError):
+        sharded.update_n(st, 1, mesh8, kernel="pallas")
+    with pytest.raises(TypeError):
+        sharded.solve_resident(sh, mesh8, segment_iterations=100)
+    monkeypatch.setattr(route, "platform", lambda: "rocm")
+    with pytest.raises(ValueError, match="no compute path"):
+        sharded.update_n(st, 1, mesh8)
 
 
 def test_solve_resident_on_sharded_grid(mesh8):
     """solve_resident runs the whole convergence on the mesh-resident
-    buffers (no GridState round trip) — iteration-exact vs core, resident
-    routing and the pipelined segment driver both covered."""
+    buffers (no GridState round trip) — iteration-exact vs core."""
     img = maps.random_obstacles(48, 512, density=0.1, seed=7)
     st = _state(img)
     ref = core.solve(_state(img), stagger=20)
-    for seg in (None, 93):
-        sh = sharded.shard_state(st, mesh8)
-        sh2, conv = sharded.solve_resident(
-            sh, mesh8, stagger=20, kernel="resident",
-            segment_iterations=seg)
-        assert bool(conv)
-        assert int(sh2.iteration) == int(ref.iteration)
-        back = sharded.unshard(sh2)
-        np.testing.assert_allclose(
-            np.asarray(back.u), np.asarray(ref.u), rtol=0, atol=1e-3
-        )
+    sh = sharded.shard_state(st, mesh8)
+    sh2, conv = sharded.solve_resident(sh, mesh8, stagger=20)
+    assert bool(conv)
+    assert int(sh2.iteration) == int(ref.iteration)
+    back = sharded.unshard(sh2)
+    np.testing.assert_allclose(
+        np.asarray(back.u), np.asarray(ref.u), rtol=0, atol=1e-3
+    )
+
+

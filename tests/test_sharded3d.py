@@ -83,15 +83,16 @@ def test_sharded3d_chunk_depths_equivalent(mesh8):
             np.testing.assert_array_equal(base, u)
 
 
-def test_sharded3d_pallas_composition_matches_xla(mesh8):
-    """Per-shard flattened Pallas kernel (interpret mode) == XLA local
-    sweeps inside the same halo loop."""
+def test_sharded3d_small_volume_matches_core(mesh8):
+    """A volume whose shards are 8 x 8 planes: 7 sweeps with one remainder
+    chunk equal the single-device path, delta included."""
     st1 = _volume(6, 16, 32, seed=13)
     st2 = _volume(6, 16, 32, seed=13)
-    out_x = sharded3d.update_n(st1, 7, mesh8, kernel="xla")
-    out_p = sharded3d.update_n(st2, 7, mesh8, kernel="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(out_x.u), np.asarray(out_p.u))
-    assert float(out_x.delta) == float(out_p.delta)
+    out_c = core.update_n(st1, 7)
+    out_s = sharded3d.update_n(st2, 7, mesh8, chunk_depth=4)
+    np.testing.assert_allclose(np.asarray(out_c.u), np.asarray(out_s.u),
+                               rtol=2e-6, atol=1e-4)
+    assert float(out_c.delta) == float(out_s.delta)
 
 
 def test_sharded3d_1d_mesh():
@@ -124,15 +125,14 @@ def test_sharded3d_z_axis_update_matches_core():
 
 def test_sharded3d_z_and_plane_mixed_mesh():
     """(2, 2, 2) mesh: z AND both plane axes sharded simultaneously, with a
-    non-mesh-aligned shape; pallas-interpret per-shard kernel equals XLA."""
+    non-mesh-aligned shape; chunk depths 4 and 1 agree bit for bit."""
     mesh = sharded3d.make_mesh3d((2, 2, 2))
     st1 = _volume(11, 18, 26, seed=23)
     st2 = _volume(11, 18, 26, seed=23)
     st3 = _volume(11, 18, 26, seed=23)
     out1 = core.update_n(st1, 7)
-    out_x = sharded3d.update_n(st2, 7, mesh, chunk_depth=4, kernel="xla")
-    out_p = sharded3d.update_n(st3, 7, mesh, chunk_depth=4,
-                               kernel="pallas_interpret")
+    out_x = sharded3d.update_n(st2, 7, mesh, chunk_depth=4)
+    out_p = sharded3d.update_n(st3, 7, mesh, chunk_depth=1)
     np.testing.assert_allclose(
         np.asarray(out1.u), np.asarray(out_x.u), rtol=2e-6, atol=1e-4
     )
@@ -154,42 +154,39 @@ def test_sharded3d_z_axis_solve_matches_core():
     )
 
 
-def test_sharded3d_banded_composition_matches_xla(mesh8):
-    """shard_map + per-shard plane-banded DMA kernel (beyond-VMEM regime,
-    forced via kernel=) equals the XLA path bit-for-bit, including a
-    remainder chunk shallower than the exchange depth."""
+def test_sharded3d_remainder_chunk_matches_core(mesh8):
+    """11 sweeps at depth 4 (4 + 4 + 3): a remainder chunk shallower than
+    the exchange depth equals the single-device path."""
     st1 = _volume(12, 20, 28, seed=31)
     st2 = _volume(12, 20, 28, seed=31)
-    out_x = sharded3d.update_n(st1, 11, mesh8, chunk_depth=4, kernel="xla")
-    out_b = sharded3d.update_n(st2, 11, mesh8, chunk_depth=4,
-                               kernel="pallas_banded_interpret")
-    np.testing.assert_array_equal(np.asarray(out_x.u), np.asarray(out_b.u))
-    assert float(out_x.delta) == float(out_b.delta)
+    out_c = core.update_n(st1, 11)
+    out_s = sharded3d.update_n(st2, 11, mesh8, chunk_depth=4)
+    np.testing.assert_allclose(np.asarray(out_c.u), np.asarray(out_s.u),
+                               rtol=2e-6, atol=1e-4)
+    assert float(out_c.delta) == float(out_s.delta)
 
 
-def test_sharded3d_banded_multiband(mesh8, monkeypatch):
-    """Several plane-bands per shard (tiny ext budget forces the split)."""
-    from epic_tpu.solver import pallas_biggrid3d
-
-    monkeypatch.setattr(pallas_biggrid3d, "EXT_BAND_CELL_BUDGET", 40_000)
+def test_sharded3d_depth2_matches_depth_full(mesh8):
+    """Shallow exchanges (depth 2) and one exchange per call agree bit for
+    bit on a volume the mesh does not divide evenly in y."""
     st1 = _volume(14, 16, 20, seed=37)
     st2 = _volume(14, 16, 20, seed=37)
-    out_x = sharded3d.update_n(st1, 5, mesh8, chunk_depth=2, kernel="xla")
-    out_b = sharded3d.update_n(st2, 5, mesh8, chunk_depth=2,
-                               kernel="pallas_banded_interpret")
-    np.testing.assert_array_equal(np.asarray(out_x.u), np.asarray(out_b.u))
-    assert float(out_x.delta) == float(out_b.delta)
+    out_a = sharded3d.update_n(st1, 5, mesh8, chunk_depth=2)
+    out_b = sharded3d.update_n(st2, 5, mesh8, chunk_depth=5)
+    np.testing.assert_array_equal(np.asarray(out_a.u), np.asarray(out_b.u))
+    assert float(out_a.delta) == float(out_b.delta)
 
 
-def test_sharded3d_banded_solve_matches_core(mesh8):
-    """Full 3D solve protocol through the banded per-shard kernel."""
+def test_sharded3d_solve_depth4_matches_core(mesh8):
+    """Full 3D solve protocol with 4-deep halo chunks."""
     st1 = _volume(10, 18, 22, seed=41, density=0.06)
     st2 = _volume(10, 18, 22, seed=41, density=0.06)
     out1 = core.solve(st1, stagger=10)
-    out2 = sharded3d.solve(st2, mesh8, stagger=10,
-                           kernel="pallas_banded_interpret")
+    out2 = sharded3d.solve(st2, mesh8, stagger=10, chunk_depth=4)
     assert int(out1.iteration) == int(out2.iteration)
     assert bool(out2.converged)
     np.testing.assert_allclose(
         np.asarray(out1.u), np.asarray(out2.u), rtol=2e-6, atol=1e-3
     )
+
+

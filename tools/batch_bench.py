@@ -3,7 +3,7 @@
 
 Mirrors /root/reference/libepic/tests/batch/batch.py:105-164: for each
 domain, run (a) legacy CPU SOR (omega 1.5), (b) the log-space solver on CPU
-(XLA), and (c) the log-space solver on the accelerator (Pallas on TPU), then
+(XLA), and (c) the log-space solver on the accelerator (the CUDA sweep kernel on a GPU), then
 emit a CSV with ``Percent Valid, Time per Update, Time to Converge`` per
 solver at the requested precision.
 
@@ -68,8 +68,8 @@ def _bench_epsilon(domain, img, goal, epsilon, cfg, rows):
 
     import epic_tpu
     from epic_tpu import analysis, native
-    from epic_tpu.solver import (core, legacy, pallas_biggrid,
-                                 pallas_sweep)
+    from epic_tpu import solver
+    from epic_tpu.solver import core, legacy, route
 
     # --- legacy CPU SOR (float32 and float64) ---------------------------
     for dtype, label in ((np.float32, "cpu_sor_f32"), (np.float64, "cpu_sor_f64")):
@@ -131,26 +131,22 @@ def _bench_epsilon(domain, img, goal, epsilon, cfg, rows):
         rows.append([domain, f"log_cascade_{jax.default_backend()}", epsilon,
                      pv, dt / max(iters, 1), dt, iters])
 
-    # --- log-space solver, Pallas (VMEM-resident; big-grid banded above
-    # the VMEM budget — same auto-dispatch as the planner) -----------------
-    if cfg.solver.backend in ("auto", "pallas"):
-        if pallas_sweep.fits_vmem(img.shape):
-            solve_mod = pallas_sweep
-            label = "log_pallas"
-        else:
-            solve_mod = pallas_biggrid
-            label = "log_pallas_biggrid"
+    # --- log-space solver on the routed path (the CUDA sweep kernel for
+    # 2D grids on a GPU) -------------------------------------------------
+    if (cfg.solver.backend in ("auto", "cuda")
+            and route.choose(route.platform(), img.shape,
+                             cfg.solver.backend) == route.CUDA):
         st = epic_tpu.from_occupancy_image(img, epsilon=epsilon)
-        out = solve_mod.solve(st, stagger=cfg.solver.stagger)
+        out = solver.solve_grid(st, stagger=cfg.solver.stagger, backend="cuda")
         _ = int(out.iteration)  # compile warm-up + completion
         # Warm (steady-state) timing, second run:
         st = epic_tpu.from_occupancy_image(img, epsilon=epsilon)
         t0 = time.perf_counter()
-        out = solve_mod.solve(st, stagger=cfg.solver.stagger)
+        out = solver.solve_grid(st, stagger=cfg.solver.stagger, backend="cuda")
         iters = int(out.iteration)  # D2H readback barrier
         dt = time.perf_counter() - t0
         pv = analysis.percent_valid(np.asarray(out.u), np.asarray(out.locked), goal)
-        rows.append([domain, f"{label}_{jax.default_backend()}", epsilon, pv,
+        rows.append([domain, f"log_cuda_{jax.default_backend()}", epsilon, pv,
                      dt / max(iters, 1), dt, iters])
 
 
@@ -183,7 +179,7 @@ if __name__ == "__main__":
     ap.add_argument("--sweep", action="store_true",
                     help="epsilon battery {1e-1,1e-2,1e-3} x solvers "
                     "(reference maps.py batch mode)")
-    ap.add_argument("--backend", default="auto", choices=["auto", "xla", "pallas"])
+    ap.add_argument("--backend", default="auto", choices=["auto", "xla", "cuda"])
     ap.add_argument("--cascade", action="store_true",
                     help="add a log_cascade row (coarse-to-fine warm start)")
     ap.add_argument("--out", default=None)

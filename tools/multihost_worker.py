@@ -3,14 +3,16 @@
 
 Launched N times (one per simulated host) by tests/test_multihost.py or by
 hand; each process owns a disjoint set of virtual CPU devices and they form
-ONE global mesh through jax.distributed — the same wiring a real TPU pod
-uses, with gloo standing in for DCN. Process 0 writes the gathered result to
---out as an .npz; the launcher compares it against the single-process solve.
+ONE global mesh through jax.distributed — the wiring several GPU hosts use,
+with gloo carrying the cross-process collectives. Process 0 writes the
+gathered result to --out as an .npz; the launcher compares it against the
+single-process solve.
 
 Usage:
   python tools/multihost_worker.py --coordinator localhost:PORT \
       --num-processes 2 --process-id K --local-devices 4 \
-      --out /tmp/result.npz [--mode solve|update]
+      --out /tmp/result.npz [--mode solve|update|solve3d|solve_resident|
+                             solve_resident_z]
 """
 
 from __future__ import annotations
@@ -41,8 +43,7 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # Cross-process collectives on the CPU backend ride gloo — the DCN
-    # stand-in (real pods: jax.distributed.initialize with no args).
+    # Cross-process collectives on the CPU backend ride gloo.
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -76,8 +77,8 @@ def main() -> None:
                 sl[ax] = edge
                 obstacle[tuple(sl)] = True
     else:
-        # The resident layout needs 128-lane-aligned shard widths: a wide
-        # grid (48 x 512 -> 24 x 128 local blocks on the 2x4 mesh).
+        # A wide grid for the mesh-resident solve (48 x 512 -> 24 x 128
+        # local blocks on the 2x4 mesh).
         w = 512 if args.mode == "solve_resident" else n
         rng = np.random.default_rng(7)
         obstacle = np.zeros((n, w), dtype=bool)
@@ -99,34 +100,40 @@ def main() -> None:
     if args.mode == "solve":
         out = sharded.solve(state, mesh)
     elif args.mode == "solve_resident":
-        # The tile-pure guard-aligned layout: guard exchanges (ppermute +
-        # DUS) cross the process boundary here — the DCN-analog validation
-        # of parallel.resident.
-        out = sharded.solve(state, mesh, kernel="resident")
+        # The MeshPlanner's solve on mesh-resident buffers: halo ppermutes
+        # cross the process boundary here.
+        sh, conv = sharded.solve_resident(sharded.shard_state(state, mesh),
+                                          mesh)
+        out = G.GridState(u=sh.u, locked=sh.frozen, iteration=sh.iteration,
+                          delta=sh.delta, converged=conv, epsilon=sh.epsilon)
     elif args.mode == "solve3d":
         from epic_tpu.parallel import sharded3d
 
         out = sharded3d.solve(state, mesh)
     elif args.mode == "solve_resident_z":
-        # The z-resident plane-band layout: contiguous plane-block guard
-        # ppermutes cross the process boundary here — the DCN-analog
-        # validation of parallel.resident_z.
+        # The MeshVolumePlanner's solve on a z mesh: z-slab ppermutes cross
+        # the process boundary here.
         from epic_tpu.parallel import sharded3d
 
         mesh_z = sharded3d.make_mesh3d((total, 1, 1))
-        out = sharded3d.solve(state, mesh_z, kernel="resident")
+        sv, conv = sharded3d.solve_resident3d(
+            sharded3d.shard_state3d(state, mesh_z), mesh_z)
+        out = G.GridState(u=sv.u, locked=sv.frozen, iteration=sv.iteration,
+                          delta=sv.delta, converged=conv, epsilon=sv.epsilon)
     else:
         out = sharded.update_n(state, 137, mesh)
 
-    # Gather the globally-sharded field to every host (DCN allgather on a
-    # real pod), then process 0 records the result.
+    # Gather the globally-sharded field to every host, then process 0
+    # records the result.
     from jax.experimental import multihost_utils
 
     u_full = multihost_utils.process_allgather(out.u, tiled=True)
+    # Mesh-resident buffers carry the mesh padding; crop to the grid.
+    u_full = np.asarray(u_full)[tuple(slice(0, s) for s in state.u.shape)]
     if args.process_id == 0:
         np.savez(
             args.out,
-            u=np.asarray(u_full),
+            u=u_full,
             iteration=int(out.iteration),
             delta=float(out.delta),
             converged=bool(out.converged),

@@ -1,46 +1,28 @@
 #!/usr/bin/env python
 """Scaling harness: sweeps/s of the halo-exchange solver vs mesh size.
 
-BASELINE.md's north star asks for solves/s efficiency at 1 chip / 1 host /
-N hosts. Real multi-chip hardware is not present in this environment, so
-this harness measures the *sharded program* (ppermute halos + pmax residual,
-epic_tpu.parallel.sharded) on a virtual device mesh
-(--xla_force_host_platform_device_count) — validating the scaling path and
-its efficiency accounting end-to-end; on a real slice the same script runs
-unchanged with JAX_PLATFORMS=tpu.
+Measures the sharded program (ppermute halos + pmax residual,
+epic_tpu.parallel.sharded) on the devices JAX finds: the GPUs of one host,
+or a virtual CPU mesh when run as
 
-CAVEAT recorded in the CSV: virtual CPU devices SHARE the host's physical
-cores (this image has 4), so dividing by N (efficiency_vs_first) is the
-wrong normalization here — the compute budget does not grow with N. The
-meaningful virtual-mesh number is throughput_vs_1dev: N-device sharded
-throughput over 1-device throughput at the SAME total size. Cores are the
-bottleneck either way, so ~1.0 means the sharded program (ppermute halos,
-trapezoid redundancy, per-shard dispatch) adds no overhead over the
-single-device program; < 1 would flag a program regression. On real chips
-the compute budget DOES grow with N and efficiency_vs_first becomes true
-scaling efficiency.
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python tools/scaling_bench.py --devices 1 2 4 8
+
+Virtual CPU devices share the host's cores, so there efficiency_vs_first
+(N-device rate over N times the 1-device rate) is the wrong normalization;
+throughput_vs_1dev (N-device over 1-device throughput at the same size)
+shows whether the sharded program adds overhead. On GPUs the compute grows
+with N and efficiency_vs_first is the scaling efficiency.
 
 Usage: python tools/scaling_bench.py [--sizes 1024 4096] [--sweeps 200]
-       [--devices 1 2 4 8] [--kernel auto] [--csv docs/results_scaling.csv]
+       [--devices 1 2 4] [--csv out.csv] [--assert-efficiency 0.8]
 
-REAL-HARDWARE MODE (the BASELINE ">=80% scaling efficiency at >=2 hosts"
-artifact, runnable the day a multi-chip slice exists) is ONE command:
-
-    JAX_PLATFORMS=tpu python tools/scaling_bench.py \
-        --sizes 16384 --sweeps 400 --devices 1 2 4 8 \
-        --assert-efficiency 0.8 --csv docs/results_scaling.csv
-
-On a real backend (anything but the virtual-CPU platform) the script exits
-nonzero if any >=2-device row's efficiency_vs_first falls below the
---assert-efficiency bound; on the virtual platform the assertion is
-skipped (shared physical cores make per-device efficiency meaningless —
-see the CAVEAT above). Multi-host slices: launch one process per host
-under your cluster runner; epic_tpu.parallel.multihost.initialize() picks
-up the coordinator from the standard env vars.
+With --assert-efficiency the script exits nonzero if any >=2-device row on
+a GPU falls below the bound (it is skipped on the CPU). Asking for more
+devices than are present is an error.
 """
 
 import argparse
-import os
 import pathlib
 import sys
 import time
@@ -52,45 +34,32 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="+", default=[1024])
     ap.add_argument("--sweeps", type=int, default=100)
-    ap.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4, 8])
-    ap.add_argument("--kernel", default="auto",
-                    help="per-shard kernel (auto/xla/pallas/pallas_banded...)")
+    ap.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--chunk-depth", type=int, default=16)
     ap.add_argument("--csv", default=None,
                     help="append rows to this CSV (written with header if new)")
-    ap.add_argument("--cpu", action="store_true", default=None,
-                    help="force the virtual-CPU platform (default when no TPU)")
     ap.add_argument("--assert-efficiency", type=float, default=None,
-                    help="on a REAL backend, exit nonzero if any >=2-device "
-                         "row's efficiency_vs_first is below this bound "
-                         "(BASELINE: 0.8); ignored on the virtual platform")
+                    help="on GPUs, exit nonzero if any >=2-device row's "
+                         "efficiency_vs_first is below this bound")
     args = ap.parse_args()
 
-    max_dev = max(args.devices)
-    if args.cpu or os.environ.get("JAX_PLATFORMS") != "tpu":
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={max_dev}"
-        ).strip()
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", max_dev)
-    else:
-        import jax
-
+    import jax
     import numpy as np
 
     import epic_tpu
     from epic_tpu import maps
     from epic_tpu.parallel import make_mesh, sharded
 
+    if max(args.devices) > len(jax.devices()):
+        sys.exit(f"scaling_bench: {max(args.devices)} devices asked for, "
+                 f"{len(jax.devices())} {jax.default_backend()} devices present")
+
     rows = []
     for size in args.sizes:
         img = maps.random_obstacles(size, size, density=0.1, seed=0)
         base = None
         print(f"grid {size}^2, {args.sweeps} sweeps per measurement, "
-              f"backend={jax.default_backend()}, kernel={args.kernel}")
+              f"backend={jax.default_backend()}")
         print("devices  mesh      sweeps/s   cell-updates/s   eff/dev  vs-1dev")
         for n in args.devices:
             my = int(np.floor(np.sqrt(n)))
@@ -101,14 +70,12 @@ def main():
             st = epic_tpu.from_occupancy_image(img, epsilon=1e-6)
             # Warm-up/compile.
             out = sharded.update_n(st, args.sweeps, mesh,
-                                   chunk_depth=args.chunk_depth,
-                                   kernel=args.kernel)
+                                   chunk_depth=args.chunk_depth)
             _ = float(out.delta)
             st2 = epic_tpu.from_occupancy_image(img, epsilon=1e-6)
             t0 = time.perf_counter()
             out = sharded.update_n(st2, args.sweeps, mesh,
-                                   chunk_depth=args.chunk_depth,
-                                   kernel=args.kernel)
+                                   chunk_depth=args.chunk_depth)
             _ = np.asarray(out.u).sum()  # full D2H barrier
             dt = time.perf_counter() - t0
             sps = args.sweeps / dt
@@ -116,17 +83,17 @@ def main():
             if base is None:
                 base = (sps, n)
             eff = sps / (base[0] * n / base[1])
-            tput = sps / base[0]
+            gain = sps / base[0]
             print(f"{n:7d}  ({my},{n//my})   {sps:9.1f}  {cups:13.3e}   "
-                  f"{eff:6.2f}  x{tput:5.2f}")
+                  f"{eff:6.2f}  x{gain:5.2f}")
             rows.append(dict(
-                backend=jax.default_backend(), kernel=args.kernel,
+                backend=jax.default_backend(),
                 size=size, devices=n, mesh=f"{my}x{n//my}",
                 sweeps=args.sweeps, chunk_depth=args.chunk_depth,
                 sweeps_per_s=round(sps, 2), cell_updates_per_s=round(cups),
                 efficiency_vs_first=round(eff, 3),
-                throughput_vs_1dev=round(tput, 3),
-                caveat=("virtual-cpu-devices-share-4-cores"
+                throughput_vs_1dev=round(gain, 3),
+                caveat=("virtual-cpu-devices-share-host-cores"
                         if jax.default_backend() == "cpu" else ""),
             ))
 

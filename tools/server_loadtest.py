@@ -8,8 +8,8 @@ this harness measures what the epic_tpu server sustains: N concurrent clients
 interleaving compute_path / get_cell / set_cells against a live anytime
 relaxation loop.
 
-By default it spins an in-process server (CPU backend unless the ambient JAX
-platform is an accelerator); pass --port to drive an already-running
+By default it spins an in-process server on the platform JAX finds; pass
+--port to drive an already-running
 `python -m epic_tpu.services.server` instead.
 
 Prints one JSON line: requests/s plus per-verb p50/p95/p99/max milliseconds.
@@ -82,16 +82,10 @@ def main():
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--port", type=int, default=None,
                     help="drive an external server instead of in-process")
-    ap.add_argument("--backend", default="xla", choices=["auto", "xla", "pallas"])
+    ap.add_argument("--backend", default="auto", choices=["auto", "xla", "cuda"],
+                    help="compute path (solver.route); cuda needs a GPU")
     ap.add_argument("--steps-per-update", type=int, default=50)
     args = ap.parse_args()
-
-    if args.port is None and args.backend == "xla":
-        import jax
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
 
     from epic_tpu import maps
     from epic_tpu.planner import PlannerConfig
